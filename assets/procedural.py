@@ -18,7 +18,6 @@ and is itself exercised by the loader round-trip tests.
 
 from __future__ import annotations
 
-import io
 import json
 import math
 import struct
@@ -169,11 +168,9 @@ def sphere_prim(center, radius: float, material: int,
 # PNG texture generation
 # --------------------------------------------------------------------------
 def _png_bytes(rgba: np.ndarray) -> bytes:
-    from PIL import Image
+    from vulkan_pathtracer_tpu.utils.png import encode_png
 
-    buf = io.BytesIO()
-    Image.fromarray(rgba, mode="RGBA").save(buf, format="PNG")
-    return buf.getvalue()
+    return encode_png(rgba)
 
 
 def checker_texture(size: int = 64, cells: int = 8,

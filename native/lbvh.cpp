@@ -6,7 +6,7 @@
 // range splits with median fallback, preorder emission with skip
 // (escape) pointers and contiguous leaf triangle ranges.
 //
-// This is the TPU-native equivalent of the work the Vulkan driver does
+// This is the equivalent of the work the Vulkan driver does
 // inside vkCmdBuildAccelerationStructuresKHR for the reference
 // (RaytracingPass.zig:451-465); the reference's host-side native
 // ingestion discipline (Zig + C libs) maps to this C++ extension,
@@ -88,7 +88,7 @@ struct Builder {
         }
         // Snap to a leaf-block multiple (ranges start block-aligned
         // from the root, so every leaf fills a whole block — halves
-        // node count and VMEM footprint vs ragged leaves).
+        // node count and memory footprint vs ragged leaves).
         int64_t b = max_leaf;
         int64_t rel = split - start;
         int64_t snapped = ((rel + b / 2) / b) * b;

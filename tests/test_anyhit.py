@@ -1,11 +1,11 @@
 """ANY-HIT traversal (emissive-free last bounce) correctness.
 
-The any-hit kernel's hit/miss mask must match the closest-hit
-kernel's ``t < MISS_T`` exactly: both evaluate the same per-triangle
+The any-hit query's hit/miss mask must match closest-hit's
+``t < MISS_T`` exactly: both evaluate the same per-triangle
 Moller-Trumbore accept window, and "does some triangle accept" is an
-order-independent OR (ops/pallas_pair._make_nary_anyhit_kernel).
-Render-level: on emissive-free scenes images are bit-identical with
-the any-hit path on or off (hit lanes would only add
+order-independent OR.  The GPU kernel's any-hit mode is checked in
+tests/test_traversal_parity.py.  Render-level: on emissive-free scenes
+images match with the any-hit path on or off (hit lanes would only add
 emissive x atten == 0; no RNG draws happen on a last bounce).
 """
 
@@ -13,14 +13,17 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
+import vulkan_pathtracer_tpu.render.wavefront as wf
 from vulkan_pathtracer_tpu.models import gltf
 from vulkan_pathtracer_tpu.models.device_scene import build_device_scene
 from vulkan_pathtracer_tpu.ops.intersect import MISS_T
-from vulkan_pathtracer_tpu.ops.pallas_pair import (
-    pallas_quad_any_hit,
-    pallas_quad_closest_hit,
-    quad_fits_vmem,
-)
+
+
+def _anyhit_off(monkeypatch):
+    import jax
+
+    monkeypatch.setattr(wf, "_anyhit_enabled", lambda scene: False)
+    jax.clear_caches()
 
 
 @pytest.fixture(scope="module")
@@ -59,73 +62,9 @@ def test_emissive_free_flag(request, atrium_dev):
     assert not build_device_scene(cornell, build_bvh=False).emissive_free
 
 
-def test_anyhit_matches_closest_mask(cols_dev):
-    assert quad_fits_vmem(cols_dev)
-    o, d = _rays(1500)
-    ref = pallas_quad_closest_hit(cols_dev, o, d, interpret=True)
-    got = pallas_quad_any_hit(cols_dev, o, d, interpret=True)
-    np.testing.assert_array_equal(
-        np.asarray(got), np.asarray(ref.t) < MISS_T)
-
-
-def test_anyhit_respects_active_mask(cols_dev):
-    o, d = _rays(900, seed=9)
-    active = jnp.asarray(np.arange(900) % 3 != 0)
-    ref = pallas_quad_closest_hit(cols_dev, o, d, active,
-                                  interpret=True)
-    got = pallas_quad_any_hit(cols_dev, o, d, active, interpret=True)
-    ref_mask = (np.asarray(ref.t) < MISS_T) & np.asarray(active)
-    np.testing.assert_array_equal(np.asarray(got), ref_mask)
-    assert not np.asarray(got)[~np.asarray(active)].any()
-
-
-def test_anyhit_hbm_leaves_matches(cols_dev):
-    o, d = _rays(700, seed=5)
-    ref = pallas_quad_any_hit(cols_dev, o, d, interpret=True)
-    got = pallas_quad_any_hit(cols_dev, o, d, interpret=True,
-                              hbm_leaves=True)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-
-
-def test_pair_anyhit_matches(cols_dev):
-    from vulkan_pathtracer_tpu.ops.pallas_pair import (
-        pallas_pair_any_hit,
-        pallas_pair_closest_hit,
-    )
-
-    o, d = _rays(1100, seed=17)
-    active = jnp.asarray(np.arange(1100) % 4 != 0)
-    ref = pallas_pair_closest_hit(cols_dev, o, d, active,
-                                  interpret=True)
-    got = pallas_pair_any_hit(cols_dev, o, d, active, interpret=True)
-    ref_mask = (np.asarray(ref.t) < MISS_T) & np.asarray(active)
-    np.testing.assert_array_equal(np.asarray(got), ref_mask)
-
-
-def test_pair_anyhit_instanced(request):
-    """Instanced (two-level) scene: the pair any-hit kernel's
-    object-space MT must reproduce the instanced closest-hit mask."""
-    from vulkan_pathtracer_tpu.models.instanced_scene import (
-        build_instanced_scene,
-    )
-    from vulkan_pathtracer_tpu.ops.pallas_pair import (
-        pallas_pair_any_hit,
-        pallas_pair_closest_hit,
-    )
-
-    scene = gltf.load(request.getfixturevalue("columns_glb"))
-    dev = build_instanced_scene(scene)
-    assert dev.instanced
-    o, d = _rays(900, seed=19)
-    ref = pallas_pair_closest_hit(dev, o, d, interpret=True)
-    got = pallas_pair_any_hit(dev, o, d, interpret=True)
-    np.testing.assert_array_equal(
-        np.asarray(got), np.asarray(ref.t) < MISS_T)
-
-
 def test_anyhit_dispatch_and_sorted(cols_dev):
-    """_any_hit / _any_hit_sorted (traversal="pallas": interpret
-    kernel on CPU) agree with the XLA closest-hit mask."""
+    """_any_hit / _any_hit_sorted agree with the XLA closest-hit
+    mask."""
     from vulkan_pathtracer_tpu.ops.traverse import bvh_closest_hit
     from vulkan_pathtracer_tpu.render.wavefront import (
         _any_hit,
@@ -136,19 +75,16 @@ def test_anyhit_dispatch_and_sorted(cols_dev):
     active = jnp.asarray(np.arange(1200) % 5 != 0)
     ref = bvh_closest_hit(cols_dev, o, d, active)
     ref_mask = (np.asarray(ref.t) < MISS_T) & np.asarray(active)
-    got = _any_hit(cols_dev, o, d, active, "pallas")
+    got = _any_hit(cols_dev, o, d, active, "bvh")
     np.testing.assert_array_equal(np.asarray(got), ref_mask)
-    got_s = _any_hit_sorted(cols_dev, o, d, active, "pallas")
+    got_s = _any_hit_sorted(cols_dev, o, d, active, "bvh")
     np.testing.assert_array_equal(np.asarray(got_s), ref_mask)
 
 
 @pytest.mark.slow
 def test_render_identical_with_anyhit_off(atrium_dev, monkeypatch):
     """Full render of an emissive-free scene: bit-identical image with
-    the any-hit last bounce on vs off (traversal="pallas" exercises
-    the kernels in interpret mode)."""
-    import jax
-
+    the any-hit last bounce on vs off."""
     from vulkan_pathtracer_tpu.render.pipeline import render_rows
 
     dev = atrium_dev
@@ -157,12 +93,9 @@ def test_render_identical_with_anyhit_off(atrium_dev, monkeypatch):
             jnp.asarray([4.0, 0.0, 0.0]), jnp.asarray([0.0, 2.25, 0.0]),
             jnp.asarray([0.0, 0.0, -1.0]), jnp.uint32(1))
     kw = dict(num_samples=1, num_bounces=2, width=64, height=48,
-              traversal="pallas", sort_secondary=True)
-    monkeypatch.setenv("VKPT_ANYHIT", "1")
-    jax.clear_caches()
+              traversal="bvh", sort_secondary=True)
     img_on, rays_on = render_rows(*args, **kw)
-    monkeypatch.setenv("VKPT_ANYHIT", "0")
-    jax.clear_caches()
+    _anyhit_off(monkeypatch)
     img_off, rays_off = render_rows(*args, **kw)
     np.testing.assert_array_equal(np.asarray(img_on),
                                   np.asarray(img_off))
@@ -173,8 +106,6 @@ def test_render_identical_with_anyhit_off(atrium_dev, monkeypatch):
 def test_pooled_identical_with_anyhit_off(atrium_dev, monkeypatch):
     """Pooled wavefront (frames-in-flight): any-hit last bounce on vs
     off — tight allclose (program-shape reassociation), exact rays."""
-    import jax
-
     from vulkan_pathtracer_tpu.render.wavefront import (
         trace_wavefront_pooled,
     )
@@ -185,19 +116,10 @@ def test_pooled_identical_with_anyhit_off(atrium_dev, monkeypatch):
     rng = np.random.default_rng(29)
     sx = jnp.asarray(rng.integers(0, 2**32, size=n, dtype=np.uint32))
     sy = jnp.asarray(rng.integers(0, 2**32, size=n, dtype=np.uint32))
-    kw = dict(num_bounces=2, traversal="pallas", sort_secondary=True,
+    kw = dict(num_bounces=2, traversal="bvh", sort_secondary=True,
               chunk=1024)
-    # The joint/pooled traces are now marked chunked, so the any-hit
-    # kernel only enters their chunk bodies under the explicit
-    # VKPT_ANYHIT_CHUNKED opt-in (the ungated shape killed the TPU
-    # worker 5x — ROADMAP round-4 finding 6).  Interpret mode has no
-    # worker to fault; opt in so this test still drives the kernel.
-    monkeypatch.setenv("VKPT_ANYHIT_CHUNKED", "1")
-    monkeypatch.setenv("VKPT_ANYHIT", "1")
-    jax.clear_caches()
     c_on, r_on = trace_wavefront_pooled(dev, o, d, sx, sy, **kw)
-    monkeypatch.setenv("VKPT_ANYHIT", "0")
-    jax.clear_caches()
+    _anyhit_off(monkeypatch)
     c_off, r_off = trace_wavefront_pooled(dev, o, d, sx, sy, **kw)
     np.testing.assert_allclose(np.asarray(c_on), np.asarray(c_off),
                                rtol=1e-6, atol=1e-6)
@@ -205,49 +127,10 @@ def test_pooled_identical_with_anyhit_off(atrium_dev, monkeypatch):
 
 
 @pytest.mark.slow
-def test_joint_anyhit_gated_by_default(atrium_dev, monkeypatch):
-    """WITHOUT the VKPT_ANYHIT_CHUNKED opt-in, the joint structures
-    must not dispatch the any-hit kernel inside their chunked bodies —
-    that exact program killed the TPU worker 5x (cache-warm, fresh
-    worker — ROADMAP round-4 finding 6) while VKPT_ANYHIT=1 stayed the
-    default.  Guards the gate added in trace_progressive_batch /
-    trace_wavefront_pooled."""
-    import vulkan_pathtracer_tpu.render.wavefront as wf
-
-    dev = atrium_dev
-    assert dev.emissive_free  # the gate only matters on these scenes
-    n = 1024
-    o, d = _rays(n, seed=31)
-    rng = np.random.default_rng(37)
-    sx = jnp.asarray(rng.integers(0, 2**32, size=(2, n), dtype=np.uint32))
-    sy = jnp.asarray(rng.integers(0, 2**32, size=(2, n), dtype=np.uint32))
-    monkeypatch.delenv("VKPT_ANYHIT_CHUNKED", raising=False)
-    monkeypatch.setenv("VKPT_ANYHIT", "1")
-
-    def boom(*a, **k):
-        raise AssertionError(
-            "any-hit kernel dispatched inside a chunked joint trace "
-            "without the VKPT_ANYHIT_CHUNKED opt-in")
-
-    monkeypatch.setattr(wf, "_any_hit", boom)
-    import jax
-
-    jax.clear_caches()
-    wf.trace_progressive_batch(
-        dev, o, d, sx, sy, batch=2, num_bounces=2,
-        traversal="pallas", sort_secondary=True, chunk=512)
-    wf.trace_wavefront_pooled(
-        dev, o, d, sx[0], sy[0], num_bounces=2,
-        traversal="pallas", sort_secondary=True, chunk=512)
-
-
-@pytest.mark.slow
 def test_progressive_batch_identical_with_anyhit_off(atrium_dev,
                                                      monkeypatch):
     """Joint progressive batch (the convergence path): bit-identical
     sum image with the any-hit last bounce on vs off."""
-    import jax
-
     from vulkan_pathtracer_tpu.render.wavefront import (
         trace_progressive_batch,
     )
@@ -258,16 +141,10 @@ def test_progressive_batch_identical_with_anyhit_off(atrium_dev,
     rng = np.random.default_rng(21)
     sx = jnp.asarray(rng.integers(0, 2**32, size=(4, n), dtype=np.uint32))
     sy = jnp.asarray(rng.integers(0, 2**32, size=(4, n), dtype=np.uint32))
-    kw = dict(batch=4, num_bounces=3, traversal="pallas",
+    kw = dict(batch=4, num_bounces=3, traversal="bvh",
               sort_secondary=True, chunk=1024)
-    # Opt into any-hit inside the (now gated) chunked joint trace —
-    # see test_pooled_identical_with_anyhit_off.
-    monkeypatch.setenv("VKPT_ANYHIT_CHUNKED", "1")
-    monkeypatch.setenv("VKPT_ANYHIT", "1")
-    jax.clear_caches()
     c_on, r_on = trace_progressive_batch(dev, o, d, sx, sy, **kw)
-    monkeypatch.setenv("VKPT_ANYHIT", "0")
-    jax.clear_caches()
+    _anyhit_off(monkeypatch)
     c_off, r_off = trace_progressive_batch(dev, o, d, sx, sy, **kw)
     # The two last-bounce lax.map programs differ in shape, so XLA
     # fuses the (identical) sky math differently: ~1 ulp on a handful
@@ -276,35 +153,3 @@ def test_progressive_batch_identical_with_anyhit_off(atrium_dev,
     np.testing.assert_allclose(np.asarray(c_on), np.asarray(c_off),
                                rtol=1e-6, atol=1e-6)
     assert float(r_on) == float(r_off)
-    # Sort-skip on the any-hit bounce is scheduling-only.
-    monkeypatch.setenv("VKPT_ANYHIT", "1")
-    monkeypatch.setenv("VKPT_ANYHIT_SORT", "0")
-    jax.clear_caches()
-    c_ns, r_ns = trace_progressive_batch(dev, o, d, sx, sy, **kw)
-    np.testing.assert_allclose(np.asarray(c_ns), np.asarray(c_on),
-                               rtol=1e-6, atol=1e-6)
-    assert float(r_ns) == float(r_on)
-
-
-def test_quad_anyhit_gated_bitexact(cols_dev):
-    """Round-5 vreg-gated any-hit: exact skip — gated output must be
-    identical to ungated in both leaf tiers."""
-    from vulkan_pathtracer_tpu.ops.pallas_pair import (
-        pallas_quad_any_hit,
-    )
-
-    dev = cols_dev
-    rng = np.random.default_rng(11)
-    n = 3000
-    o = jnp.asarray(rng.uniform(-3, 3, (n, 3)).astype(np.float32))
-    d = rng.standard_normal((n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    d = jnp.asarray(d)
-    act = jnp.asarray(rng.uniform(size=n) > 0.2)
-    for hbm in (False, True):
-        a = pallas_quad_any_hit(dev, o, d, act, interpret=True,
-                                packet=2048, hbm_leaves=hbm)
-        b = pallas_quad_any_hit(dev, o, d, act, interpret=True,
-                                packet=2048, hbm_leaves=hbm,
-                                gated=True)
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

@@ -50,6 +50,24 @@ def test_main_progressive_resume(box_glb, tmp_path):
     assert meta["frame"] == 4 and meta["spp"] == 4
 
 
+@pytest.mark.parametrize("mode", ["tiles", "spp"])
+def test_main_devices_flag(box_glb, tmp_path, mode):
+    """``--devices 4`` renders through the sharded pipeline on the
+    virtual mesh; tile mode presents the same image as one device."""
+    outs = {}
+    for n in (1, 4):
+        outs[n] = str(tmp_path / f"dev{n}.png")
+        argv = ["-s", box_glb, "-x", "32", "-y", "32", "-o", outs[n],
+                "--frames", "2"]
+        if n > 1:
+            argv += ["--devices", str(n), "--shard-mode", mode]
+        assert main(argv) == 0
+    one, four = read_png(outs[1]), read_png(outs[4])
+    assert four.shape == (32, 32, 3)
+    if mode == "tiles":
+        np.testing.assert_array_equal(four, one)
+
+
 def test_main_divider_output_size(box_glb, tmp_path):
     out = str(tmp_path / "div.png")
     rc = main(["-s", box_glb, "-x", "32", "-y", "32", "-d", "2",
@@ -91,42 +109,6 @@ def test_checked_render_validation(box_glb):
                  position=np.array([0, 0, -3], np.float32))
     img = checked_render(dev, cam, RenderConfig(), width=24, height=24)
     assert np.isfinite(np.asarray(img)).all()
-
-
-def test_dense_vmem_budget_fallback(columns_glb, monkeypatch):
-    """When the dense kernel's VMEM budget is too small, auto falls
-    back (dense -> packet -> XLA) and still renders correctly."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from vulkan_pathtracer_tpu.models import gltf
-    from vulkan_pathtracer_tpu.models.camera import Camera
-    from vulkan_pathtracer_tpu.models.device_scene import (
-        build_device_scene,
-    )
-    from vulkan_pathtracer_tpu.ops.pallas_traverse import (
-        dense_fits_vmem,
-        fits_vmem,
-    )
-    from vulkan_pathtracer_tpu.render.pipeline import render_frame
-
-    scene = gltf.load(columns_glb)
-    dev = build_device_scene(scene, build_bvh=True)
-    monkeypatch.setenv("VKPT_VMEM_BUDGET", "1024")
-    assert not dense_fits_vmem(dev)
-    assert not fits_vmem(dev)
-    cam = Camera(aspect_ratio=1.0,
-                 position=np.array([0, 2, -8], np.float32))
-    pos, hor, ver, fwd = (jnp.asarray(v) for v in cam.push_constants())
-    img_a, _ = render_frame(dev, pos, hor, ver, fwd, jnp.uint32(0),
-                            num_samples=1, num_bounces=2, width=24,
-                            height=24, traversal="auto")
-    monkeypatch.delenv("VKPT_VMEM_BUDGET")
-    img_b, _ = render_frame(dev, pos, hor, ver, fwd, jnp.uint32(1),
-                            num_samples=1, num_bounces=2, width=24,
-                            height=24, traversal="bvh")
-    a = np.asarray(img_a)
-    assert np.isfinite(a).all()
 
 
 def test_interactive_viewer_scripted(box_glb):

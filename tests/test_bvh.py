@@ -62,41 +62,6 @@ def test_traversal_matches_brute_force(scene_fixture, request):
     assert same.mean() > 0.99
 
 
-def test_chunked_xla_traversal_bitexact(columns_glb, monkeypatch):
-    """The row-gather budget guard (ops/traverse._ROW_GATHER_BUDGET,
-    added after the round-4 leaf-28 worker-kill bisect) must not
-    change results: chunks are independent rays, so chunked dispatch
-    is BIT-exact vs unchunked, including seeds and active masks and a
-    ray count that does not divide the chunk size."""
-    import vulkan_pathtracer_tpu.ops.traverse as trav_mod
-
-    scene = gltf.load(columns_glb)
-    dev = build_device_scene(scene, build_bvh=True)
-
-    rng = np.random.default_rng(11)
-    n = 531  # deliberately not a multiple of any chunk size
-    origins = rng.uniform(-12, 12, size=(n, 3)).astype(np.float32)
-    targets = rng.uniform(-2, 2, size=(n, 3)).astype(np.float32)
-    dirs = (targets - origins).astype(np.float32)
-    o, d = jnp.asarray(origins), jnp.asarray(dirs)
-    active = jnp.asarray(rng.random(n) < 0.8)
-
-    ref = bvh_closest_hit(dev, o, d, active=active)
-    seed_ref = bvh_closest_hit(dev, o, d, active=active, seed=ref)
-
-    # Force chunking: budget of one ray-row => chunk covers ~128 rays.
-    row_w = dev.tri_blocks.shape[1]
-    monkeypatch.setattr(trav_mod, "_ROW_GATHER_BUDGET", 128 * row_w)
-    chunked = bvh_closest_hit(dev, o, d, active=active)
-    chunked_seed = bvh_closest_hit(dev, o, d, active=active, seed=ref)
-
-    for a, b in ((ref, chunked), (seed_ref, chunked_seed)):
-        assert np.array_equal(np.asarray(a.t), np.asarray(b.t))
-        assert np.array_equal(np.asarray(a.tri), np.asarray(b.tri))
-        assert np.array_equal(np.asarray(a.u), np.asarray(b.u))
-        assert np.array_equal(np.asarray(a.v), np.asarray(b.v))
-
-
 def test_traversal_respects_active_mask(box_glb):
     scene = gltf.load(box_glb)
     dev = build_device_scene(scene, build_bvh=True)

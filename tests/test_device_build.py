@@ -132,26 +132,6 @@ def test_device_build_traversal_parity(columns_glb):
     np.testing.assert_allclose(hit_got, hit_ref, rtol=1e-4, atol=1e-4)
 
 
-def test_device_build_packet_kernel_parity(columns_glb):
-    """The Pallas packet kernel consumes the device-built packed
-    arrays (interpret mode) and agrees with the XLA traversal."""
-    from vulkan_pathtracer_tpu.ops.pallas_traverse import (
-        pallas_closest_hit,
-    )
-
-    host = gltf.load(columns_glb)
-    template = build_device_scene(host, build_bvh=False)
-    rebuilt = device_rebuild_scene(
-        template, template.tri_v0, template.tri_e1, template.tri_e2,
-        template.tri_gn, template.tri_attr)
-    o, d = _rays(700, seed=5)
-    ref = bvh_closest_hit(rebuilt, o, d)
-    got = pallas_closest_hit(rebuilt, o, d, interpret=True, packet=512)
-    np.testing.assert_array_equal(np.asarray(got.t), np.asarray(ref.t))
-    np.testing.assert_array_equal(np.asarray(got.tri),
-                                  np.asarray(ref.tri))
-
-
 def test_deforming_rebuild_per_frame(columns_glb):
     """DEFORMING geometry: bend the mesh with a frame-dependent
     warp, rebuild on device each frame (one jitted call), and check
@@ -194,53 +174,3 @@ def test_deforming_rebuild_per_frame(columns_glb):
         np.testing.assert_allclose(np.asarray(got.t),
                                    np.asarray(ref.t),
                                    rtol=1e-5, atol=1e-5)
-
-
-def test_device_build_pair_kernel_parity(columns_glb):
-    """The device-built pair-stack table traverses exactly like the
-    XLA path over the same rebuilt scene."""
-    from vulkan_pathtracer_tpu.ops.pallas_pair import (
-        pallas_pair_closest_hit,
-    )
-
-    host = gltf.load(columns_glb)
-    template = build_device_scene(host, build_bvh=False)
-    rebuilt = device_rebuild_scene(
-        template, template.tri_v0, template.tri_e1, template.tri_e2,
-        template.tri_gn, template.tri_attr)
-    o, d = _rays(700, seed=31)
-    ref = bvh_closest_hit(rebuilt, o, d)
-    got = pallas_pair_closest_hit(rebuilt, o, d, interpret=True,
-                                  packet=512)
-    np.testing.assert_array_equal(np.asarray(got.t), np.asarray(ref.t))
-    np.testing.assert_array_equal(np.asarray(got.tri),
-                                  np.asarray(ref.tri))
-
-
-def test_device_build_quad_kernel_parity(columns_glb):
-    """A rebuild must regenerate the QUAD table too — the dispatcher
-    prefers the quad tier on secondaries, so a stale host-built table
-    would silently traverse the pre-rebuild tree (review finding).
-    Deform first so stale tables cannot pass by accident, then check
-    the quad kernel == XLA on the rebuilt scene, exactly."""
-    from vulkan_pathtracer_tpu.ops.pallas_pair import (
-        pallas_quad_closest_hit,
-    )
-
-    host = gltf.load(columns_glb)
-    # Template WITH a host build: carries the pre-deform quad table
-    # the rebuild must replace.
-    template = build_device_scene(host, build_bvh=True)
-    shift = jnp.asarray(np.array([0.7, -0.3, 0.4], np.float32))
-    w0 = template.tri_v0 + shift
-    rebuilt = device_rebuild_scene(
-        template, w0, template.tri_e1, template.tri_e2,
-        template.tri_gn, template.tri_attr)
-    assert rebuilt.bvh_oct is None  # stale oct tables are nulled
-    o, d = _rays(700, seed=33)
-    ref = bvh_closest_hit(rebuilt, o, d)
-    got = pallas_quad_closest_hit(rebuilt, o, d, interpret=True,
-                                  packet=512)
-    np.testing.assert_array_equal(np.asarray(got.t), np.asarray(ref.t))
-    np.testing.assert_array_equal(np.asarray(got.tri),
-                                  np.asarray(ref.tri))

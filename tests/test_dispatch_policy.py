@@ -1,18 +1,21 @@
-"""Measured dispatch-policy invariants (round-4 plan6-9 evidence).
+"""Traversal dispatch policy: which traversal each mode runs where.
 
-These pin the POLICY functions, not the kernels: which stack-kernel
-family a joint/pooled chunked trace pins, and when the any-hit kernel
-may run inside chunk bodies.  The evidence behind each rule lives in
-ROADMAP.md round-4 findings 6-8 (11 worker kills bisected to in-VMEM
-leaf tables inside long joint chunked-lax.map programs; the HBM-leaf
-twin survives and measures faster).
+``auto`` runs the GPU kernel on a GPU and the XLA loop elsewhere;
+``bvh`` and ``brute`` are explicit references on every platform; the
+kernel's interpret mode is never chosen by the render path.  The
+platform is faked by patching ``jax.default_backend`` as the wavefront
+module sees it, and the kernel entry points are replaced by spies, so
+nothing here needs a GPU.
 """
 
 import numpy as np
+import jax.numpy as jnp
 import pytest
 
 from vulkan_pathtracer_tpu.models import gltf
 from vulkan_pathtracer_tpu.models.device_scene import build_device_scene
+from vulkan_pathtracer_tpu.ops import traverse_gpu
+from vulkan_pathtracer_tpu.ops.traverse import bvh_closest_hit
 from vulkan_pathtracer_tpu.render import wavefront as wf
 
 
@@ -22,99 +25,42 @@ def small_dev(request):
     return build_device_scene(scene, build_bvh=True, max_leaf_size=14)
 
 
-def test_joint_kernel_small_scene_keeps_mixed(small_dev):
-    """Small scenes (Cornell/box class) ran in-VMEM joint programs
-    across three rounds without a fault — they keep per-phase tiers."""
-    assert wf._joint_kernel(small_dev) == "mixed"
-
-
-def test_joint_kernel_pins_hbm_past_threshold(small_dev, monkeypatch):
-    """Scenes whose VMEM-resident leaf table exceeds the measured
-    kill-regime cut pin the HBM-streamed-leaf family."""
-    monkeypatch.setattr(wf, "_JOINT_HBM_LEAF_BYTES", 1)
-    assert wf._joint_kernel(small_dev) == "quad_hbm"
-
-
-def test_joint_kernel_threshold_counts_split_rows(request, monkeypatch):
-    """The threshold must count 512 B per STORED row — a leaf-28 bake
-    stores 2 rows per block, so the same scene crosses the cut at the
-    same byte count regardless of leaf size (code-review fix)."""
-    scene = gltf.load(request.getfixturevalue("columns_glb"))
-    dev14 = build_device_scene(scene, build_bvh=True, max_leaf_size=14)
-    dev28 = build_device_scene(scene, build_bvh=True, max_leaf_size=28)
-    bytes14 = dev14.tri_blocks.shape[0] * 512
-    # Put the cut between the two raw block counts: if the rpl factor
-    # were ignored, dev28 (half the blocks) would stay "mixed" while
-    # dev14 pins — the bug the fix removed.
-    monkeypatch.setattr(wf, "_JOINT_HBM_LEAF_BYTES", bytes14 - 1)
-    assert wf._joint_kernel(dev14) == "quad_hbm"
-    assert wf._joint_kernel(dev28) == "quad_hbm"
-
-
-def test_joint_kernel_env_override(small_dev, monkeypatch):
-    monkeypatch.setenv("VKPT_JOINT_KERNEL", "quad")
-    assert wf._joint_kernel(small_dev) == "quad"
-
-
-def test_anyhit_gate_chunked(small_dev, monkeypatch):
-    """Chunked any-hit: on iff the pinned family is HBM-leaf (the
-    measured fault-free + faster shape); VKPT_ANYHIT_CHUNKED forces
-    both ways."""
-    monkeypatch.setattr(small_dev, "emissive_free", True)
-    assert wf._anyhit_enabled(small_dev)  # unchunked: on
-
-    with wf.uniform_stack_kernel("quad"):
-        assert not wf._anyhit_enabled(small_dev)
-    with wf.uniform_stack_kernel("quad_hbm"):
-        assert wf._anyhit_enabled(small_dev)
-    with wf.uniform_stack_kernel("mixed"):
-        assert not wf._anyhit_enabled(small_dev)
-
-    monkeypatch.setenv("VKPT_ANYHIT_CHUNKED", "1")
-    with wf.uniform_stack_kernel("quad"):
-        assert wf._anyhit_enabled(small_dev)
-    monkeypatch.setenv("VKPT_ANYHIT_CHUNKED", "0")
-    with wf.uniform_stack_kernel("quad_hbm"):
-        assert not wf._anyhit_enabled(small_dev)
-
-
-def test_anyhit_dispatch_honors_hbm_pin(small_dev, monkeypatch):
-    """Under an HBM pin, _any_hit must never dispatch an in-VMEM
-    pallas kernel (the worker-kill shape): quad_hbm pin -> the HBM
-    any-hit; oct_hbm pin (no same-family any-hit) -> the closest-hit
-    fallback, which honors the pin itself."""
-    calls = []
-    from vulkan_pathtracer_tpu.ops import pallas_pair as pp
-
-    real = pp.pallas_quad_any_hit
-
-    def spy(scene, o, d, active=None, **kw):
-        calls.append(kw)
-        return real(scene, o, d, active, **kw)
-
-    monkeypatch.setattr(pp, "pallas_quad_any_hit", spy)
+@pytest.fixture
+def rays():
     rng = np.random.default_rng(0)
-    import jax.numpy as jnp
-
-    o = jnp.asarray(rng.uniform(-5, 5, (128, 3)).astype(np.float32))
-    d = rng.normal(size=(128, 3)).astype(np.float32)
+    o = jnp.asarray(rng.uniform(-5, 5, (64, 3)).astype(np.float32))
+    d = rng.normal(size=(64, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    d = jnp.asarray(d)
+    return o, jnp.asarray(d)
 
-    with wf.uniform_stack_kernel("quad_hbm"):
-        wf._any_hit(small_dev, o, d, None, "pallas")
-    assert calls and calls[-1].get("hbm_leaves") is True
 
-    calls.clear()
-    with wf.uniform_stack_kernel("oct_hbm"):
-        wf._any_hit(small_dev, o, d, None, "pallas")
-    assert not calls  # fell to closest-hit, no quad any-hit dispatch
+@pytest.fixture
+def kernel_spy(monkeypatch):
+    """Replace the kernel entry points with spies that record their
+    keyword arguments and answer with the XLA reference."""
+    calls = []
+
+    def closest(scene, o, d, active=None, seed=None, **kw):
+        calls.append(("closest", kw))
+        return bvh_closest_hit(scene, o, d, active, seed=seed)
+
+    def anyhit(scene, o, d, active=None, **kw):
+        calls.append(("any", kw))
+        h = bvh_closest_hit(scene, o, d, active).tri >= 0
+        return h
+
+    monkeypatch.setattr(traverse_gpu, "gpu_closest_hit", closest)
+    monkeypatch.setattr(traverse_gpu, "gpu_any_hit", anyhit)
+    return calls
+
+
+def _fake_backend(monkeypatch, name):
+    monkeypatch.setattr(wf.jax, "default_backend", lambda: name)
 
 
 def test_size_keyed_leaf_policy():
     # One shared policy function (utils/config.py) feeds both the app
-    # and bench defaults — round-4 plan7-10 measured leaf 28 winning
-    # only at >= 50k tris (small scenes ~11% worse).
+    # and bench defaults.
     from vulkan_pathtracer_tpu.utils.config import (
         LEAF28_MIN_TRIS,
         default_max_leaf,
@@ -126,36 +72,55 @@ def test_size_keyed_leaf_policy():
     assert default_max_leaf(3_300_000) == 28
 
 
-def test_vgate_pin_counts_as_hbm_family(small_dev, monkeypatch):
-    """vgate_hbm pin: counted as an HBM-leaf family by the chunked
-    any-hit gate (same worker-kill constraint as quad_hbm)."""
+def test_auto_on_cpu_runs_xla(small_dev, rays, kernel_spy):
+    o, d = rays
+    assert not wf._use_kernel(small_dev, "auto")
+    hit = wf._closest_hit(small_dev, o, d, None, "auto")
+    ref = bvh_closest_hit(small_dev, o, d)
+    np.testing.assert_array_equal(np.asarray(hit.tri), np.asarray(ref.tri))
+    wf._any_hit(small_dev, o, d, None, "auto")
+    assert kernel_spy == []
+
+
+def test_auto_on_gpu_runs_kernel_compiled(small_dev, rays, kernel_spy,
+                                          monkeypatch):
+    """On a GPU ``auto`` dispatches both kernel modes, never with
+    interpret mode (the render path passes no interpret flag)."""
+    _fake_backend(monkeypatch, "gpu")
+    o, d = rays
+    wf._closest_hit(small_dev, o, d, None, "auto")
+    wf._any_hit(small_dev, o, d, None, "auto")
+    assert [c[0] for c in kernel_spy] == ["closest", "any"]
+    assert all(not kw.get("interpret", False) for _, kw in kernel_spy)
+
+
+@pytest.mark.parametrize("traversal", ["bvh", "brute"])
+def test_explicit_references_never_run_kernel(small_dev, rays, kernel_spy,
+                                              monkeypatch, traversal):
+    _fake_backend(monkeypatch, "gpu")
+    o, d = rays
+    hit = wf._closest_hit(small_dev, o, d, None, traversal)
+    ref = bvh_closest_hit(small_dev, o, d)
+    np.testing.assert_array_equal(np.asarray(hit.t < 1e32),
+                                  np.asarray(ref.t < 1e32))
+    wf._any_hit(small_dev, o, d, None, traversal)
+    assert kernel_spy == []
+
+
+def test_no_bvh_auto_runs_brute_force(request, monkeypatch, kernel_spy):
+    _fake_backend(monkeypatch, "gpu")
+    scene = gltf.load(request.getfixturevalue("box_glb"))
+    dev = build_device_scene(scene, build_bvh=False)
+    assert not wf._use_kernel(dev, "auto")
+    o = jnp.zeros((8, 3), jnp.float32)
+    d = jnp.tile(jnp.asarray([[0.0, 0.0, 1.0]], jnp.float32), (8, 1))
+    hit = wf._closest_hit(dev, o, d, None, "auto")
+    assert hit.t.shape == (8,)
+    assert kernel_spy == []
+
+
+def test_anyhit_enabled_follows_emissive_free(small_dev, monkeypatch):
     monkeypatch.setattr(small_dev, "emissive_free", True)
-    with wf.uniform_stack_kernel("vgate_hbm"):
-        assert wf._anyhit_enabled(small_dev)
-    with wf.uniform_stack_kernel("vgate"):
-        assert not wf._anyhit_enabled(small_dev)
-
-
-def test_joint_vgate_pin_matches_quad_pin(request, monkeypatch):
-    """A VKPT_JOINT_KERNEL=vgate_hbm pin must produce the same joint
-    radiance as the quad_hbm pin (the gated kernel is an exact skip of
-    the same quad-table MT)."""
-    import numpy as np
-
-    from vulkan_pathtracer_tpu.models.camera import Camera
-    from vulkan_pathtracer_tpu.render.pipeline import RenderPipeline
-    from vulkan_pathtracer_tpu.utils.config import RenderConfig
-
-    scene = gltf.load(request.getfixturevalue("columns_glb"))
-    dev = build_device_scene(scene, build_bvh=True, max_leaf_size=14)
-    config = RenderConfig(num_samples=1, num_bounces=2,
-                          resolution_x=48, resolution_y=32)
-    cam = Camera(aspect_ratio=config.aspect_ratio)
-    pipe = RenderPipeline(dev, config)
-
-    monkeypatch.setenv("VKPT_JOINT_KERNEL", "quad_hbm")
-    a, ra = pipe.render_batch_sum(cam, 0, 2, joint=True)
-    monkeypatch.setenv("VKPT_JOINT_KERNEL", "vgate_hbm")
-    b, rb = pipe.render_batch_sum(cam, 0, 2, joint=True)
-    assert float(ra) == float(rb)
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert wf._anyhit_enabled(small_dev)
+    monkeypatch.setattr(small_dev, "emissive_free", False)
+    assert not wf._anyhit_enabled(small_dev)

@@ -7,8 +7,8 @@ through shard_map.
 This is the strongest multi-host evidence this single-machine
 environment can produce: the actual coordination service, the actual
 process-group handshake, and an actual collective spanning two
-processes — not mocks.  On real TPU pods the identical code path runs
-with ICI/DCN transports (the reference has no networking at all;
+processes — not mocks.  On GPU hosts the identical code path runs
+with NCCL transports (the reference has no networking at all;
 SURVEY.md §2 marks multi-host as new capability).
 """
 

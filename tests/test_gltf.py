@@ -130,7 +130,7 @@ def test_atrium_scene_loads_and_builds(tmp_path):
     assert scene.triangle_count > 3000
     assert len(scene.materials) == 8
     dev = build_device_scene(scene, build_bvh=True, max_leaf_size=8)
-    assert dev.bvh_rows is not None
+    assert dev.bvh_packed is not None
     import numpy as np
 
     v0 = np.asarray(dev.tri_v0)[: dev.num_triangles]

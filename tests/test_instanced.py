@@ -110,41 +110,6 @@ def test_instanced_render_matches_flat(scenes):
                                rtol=1e-3, atol=1e-3)
 
 
-def test_instanced_dense_kernel_matches_xla(scenes):
-    from vulkan_pathtracer_tpu.ops.pallas_traverse import (
-        dense_fits_vmem,
-        pallas_dense_closest_hit,
-    )
-
-    _, _, inst = scenes
-    assert dense_fits_vmem(inst)
-    o, d = _rays(1200, seed=7)
-    ref = bvh_closest_hit(inst, o, d)
-    got = pallas_dense_closest_hit(inst, o, d, interpret=True, packet=256)
-    np.testing.assert_allclose(np.asarray(got.t), np.asarray(ref.t),
-                               rtol=1e-5, atol=1e-5)
-    assert (np.asarray(got.tri) == np.asarray(ref.tri)).mean() > 0.999
-
-
-def test_instanced_packet_kernel_matches_xla(scenes):
-    """The packet kernel's instanced leaf decode (object-space packet
-    transform + det_sign winding) must match the XLA traversal, like
-    the dense kernel's."""
-    from vulkan_pathtracer_tpu.ops.pallas_traverse import (
-        fits_vmem,
-        pallas_closest_hit,
-    )
-
-    _, _, inst = scenes
-    assert fits_vmem(inst)
-    o, d = _rays(1200, seed=7)
-    ref = bvh_closest_hit(inst, o, d)
-    got = pallas_closest_hit(inst, o, d, interpret=True, packet=2048)
-    np.testing.assert_allclose(np.asarray(got.t), np.asarray(ref.t),
-                               rtol=1e-5, atol=1e-5)
-    assert (np.asarray(got.tri) == np.asarray(ref.tri)).mean() > 0.999
-
-
 @pytest.mark.slow
 def test_update_instance_transforms(scenes):
     """O(transforms) animation: moving instances on-device must match
@@ -170,19 +135,12 @@ def test_update_instance_transforms(scenes):
     np.testing.assert_allclose(np.asarray(got.t), np.asarray(ref.t),
                                rtol=1e-4, atol=1e-4)
 
-    # Regression: the pair-stack table bakes child boxes per row, so
-    # a transform update must regenerate it (a stale table traverses
-    # pre-move boxes — wrong hits/occlusion through the production
-    # dispatcher, which prefers the pair kernel for instanced scenes).
-    if moved.bvh_pair is not None:
-        from vulkan_pathtracer_tpu.ops.pallas_pair import (
-            pallas_pair_closest_hit,
-        )
+    # The GPU kernel reads the regenerated packed node rows directly.
+    from vulkan_pathtracer_tpu.ops.traverse_gpu import gpu_closest_hit
 
-        pg = pallas_pair_closest_hit(moved, o, d, interpret=True,
-                                     packet=512)
-        np.testing.assert_allclose(np.asarray(pg.t), np.asarray(got.t),
-                                   rtol=1e-5, atol=1e-5)
+    kg = gpu_closest_hit(moved, o, d, interpret=True)
+    np.testing.assert_allclose(np.asarray(kg.t), np.asarray(got.t),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_mirrored_instance_culling():
@@ -211,36 +169,3 @@ def test_mirrored_instance_culling():
     got = bvh_closest_hit(inst, o, d)
     np.testing.assert_allclose(np.asarray(got.t), np.asarray(ref.t),
                                rtol=1e-4, atol=1e-4)
-
-
-def test_instanced_pair_kernel_parity(columns_glb):
-    """Pair-stack kernel with instanced leaf decode (packed
-    inst|block values, object-space MT, det_sign cull) vs the XLA
-    traversal over the same two-level scene."""
-    import jax.numpy as jnp
-
-    from vulkan_pathtracer_tpu.models import gltf
-    from vulkan_pathtracer_tpu.models.instanced_scene import (
-        build_instanced_scene,
-    )
-    from vulkan_pathtracer_tpu.ops.pallas_pair import (
-        pallas_pair_closest_hit,
-    )
-    from vulkan_pathtracer_tpu.ops.traverse import bvh_closest_hit
-
-    host = gltf.load(columns_glb)
-    inst = build_instanced_scene(host, max_leaf_size=8)
-    assert inst.bvh_pair is not None
-    rng = np.random.default_rng(13)
-    n = 900
-    o = jnp.asarray(rng.uniform(-9, 9, size=(n, 3)).astype(np.float32))
-    d = rng.normal(size=(n, 3))
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    d = jnp.asarray(d.astype(np.float32))
-
-    ref = bvh_closest_hit(inst, o, d)
-    got = pallas_pair_closest_hit(inst, o, d, interpret=True,
-                                  packet=512)
-    np.testing.assert_allclose(np.asarray(got.t), np.asarray(ref.t),
-                               rtol=1e-5, atol=1e-5)
-    assert (np.asarray(got.tri) == np.asarray(ref.tri)).mean() > 0.999

@@ -67,229 +67,6 @@ def test_spp_mode_runs(box_dev):
     assert float(rays) >= 4 * 16 * 16
 
 
-def test_tiled_render_pallas_kernel_matches(box_dev, monkeypatch):
-    """The PRODUCTION packet kernel (traversal='pallas', interpret
-    mode on CPU) inside shard_map: the combination that runs on a real
-    TPU mesh must compose with collectives and match the single-chip
-    packet-kernel render exactly (round-2 VERDICT: every multi-chip
-    test pinned traversal='bvh', so this pairing had zero coverage)."""
-    for env in ("VKPT_PACKET", "VKPT_PAIR_PACKET", "VKPT_QUAD_PACKET"):
-        monkeypatch.setenv(env + "_PRIMARY", "256")
-        monkeypatch.setenv(env + "_SECONDARY", "256")
-    mesh = make_render_mesh(4)
-    dev = replicate_scene(box_dev, mesh)
-    cam = Camera(aspect_ratio=1.0, position=np.array([0, 0, -3], np.float32))
-    pos, hor, ver, fwd = (jnp.asarray(v) for v in cam.push_constants())
-
-    height, width = 16, 16
-    sharded = make_sharded_render(
-        mesh, dev, num_samples=1, num_bounces=2,
-        width=width, height=height, traversal="pallas",
-    )
-    img_sharded, rays_sharded = sharded(dev, pos, hor, ver, fwd,
-                                        jnp.uint32(0))
-
-    img_single, rays_single = render_frame(
-        box_dev, pos, hor, ver, fwd, jnp.uint32(0),
-        num_samples=1, num_bounces=2, width=width, height=height,
-        traversal="pallas",
-    )
-    np.testing.assert_array_equal(np.asarray(img_sharded),
-                                  np.asarray(img_single))
-    assert float(rays_sharded) == float(rays_single)
-
-
-def test_tiled_render_frontier_kernel_matches(box_dev, monkeypatch):
-    """The opt-in frontier kernel (VKPT_KERNEL_*=frontier) inside
-    shard_map must match the single-chip frontier render exactly."""
-    monkeypatch.setenv("VKPT_KERNEL_PRIMARY", "frontier")
-    monkeypatch.setenv("VKPT_KERNEL_SECONDARY", "frontier")
-    monkeypatch.setenv("VKPT_FRONTIER_PACKET", "256")
-    mesh = make_render_mesh(4)
-    dev = replicate_scene(box_dev, mesh)
-    cam = Camera(aspect_ratio=1.0, position=np.array([0, 0, -3], np.float32))
-    pos, hor, ver, fwd = (jnp.asarray(v) for v in cam.push_constants())
-
-    height, width = 16, 16
-    sharded = make_sharded_render(
-        mesh, dev, num_samples=1, num_bounces=2,
-        width=width, height=height, traversal="pallas",
-    )
-    img_sharded, rays_sharded = sharded(dev, pos, hor, ver, fwd,
-                                        jnp.uint32(0))
-    img_single, rays_single = render_frame(
-        box_dev, pos, hor, ver, fwd, jnp.uint32(0),
-        num_samples=1, num_bounces=2, width=width, height=height,
-        traversal="pallas",
-    )
-    np.testing.assert_array_equal(np.asarray(img_sharded),
-                                  np.asarray(img_single))
-    assert float(rays_sharded) == float(rays_single)
-
-
-def test_tiled_render_mxu_tier_matches(request, monkeypatch):
-    """The MXU leaf tier (VKPT_MT=mxu) inside shard_map: the exact
-    same zero-coverage trap round 2 hit with the packet kernel —
-    exercise the tier under the sharded render before it meets a real
-    mesh.  Replicating the scene must carry tri_coefs (a pytree array
-    field) to every device."""
-    from vulkan_pathtracer_tpu.ops.mxu_mt import ensure_mt_coefs
-
-    for env in ("VKPT_PACKET", "VKPT_PAIR_PACKET", "VKPT_QUAD_PACKET"):
-        monkeypatch.setenv(env + "_PRIMARY", "256")
-        monkeypatch.setenv(env + "_SECONDARY", "256")
-    monkeypatch.setenv("VKPT_MT", "mxu")
-    # Fresh scene: ensure_mt_coefs attaches in place, and mutating the
-    # module-scoped box_dev would leak tri_coefs into other tests.
-    base = ensure_mt_coefs(build_device_scene(
-        gltf.load(request.getfixturevalue("box_glb")), build_bvh=True))
-    mesh = make_render_mesh(4)
-    dev = replicate_scene(base, mesh)
-    cam = Camera(aspect_ratio=1.0, position=np.array([0, 0, -3], np.float32))
-    pos, hor, ver, fwd = (jnp.asarray(v) for v in cam.push_constants())
-
-    height, width = 16, 16
-    sharded = make_sharded_render(
-        mesh, dev, num_samples=1, num_bounces=2,
-        width=width, height=height, traversal="pallas",
-    )
-    img_sharded, rays_sharded = sharded(dev, pos, hor, ver, fwd,
-                                        jnp.uint32(0))
-    img_single, rays_single = render_frame(
-        base, pos, hor, ver, fwd, jnp.uint32(0),
-        num_samples=1, num_bounces=2, width=width, height=height,
-        traversal="pallas",
-    )
-    np.testing.assert_array_equal(np.asarray(img_sharded),
-                                  np.asarray(img_single))
-    assert float(rays_sharded) == float(rays_single)
-
-
-def test_rebalanced_pooled_pallas_kernel(box_dev, monkeypatch):
-    """Packet kernel + per-bounce all_to_all rebalancing + psum'd
-    scatter-add routing in one program (the production multi-chip
-    wavefront): must run and match the single-device pooled wavefront
-    using the same kernel."""
-    from vulkan_pathtracer_tpu.parallel.rebalance import (
-        make_pooled_sharded_render,
-    )
-    from vulkan_pathtracer_tpu.render.pipeline import (
-        _pixel_seeds, generate_rays,
-    )
-    from vulkan_pathtracer_tpu.render.wavefront import (
-        trace_wavefront_pooled,
-    )
-
-    for env in ("VKPT_PACKET", "VKPT_PAIR_PACKET", "VKPT_QUAD_PACKET"):
-        monkeypatch.setenv(env + "_PRIMARY", "256")
-        monkeypatch.setenv(env + "_SECONDARY", "256")
-    mesh = make_render_mesh(4)
-    dev = replicate_scene(box_dev, mesh)
-    cam = Camera(aspect_ratio=1.0, position=np.array([0, 0, -3], np.float32))
-    pos, hor, ver, fwd = (jnp.asarray(v) for v in cam.push_constants())
-    W, H = 16, 16
-    o, d = generate_rays(pos, hor, ver, fwd, W, H)
-    sx, sy = _pixel_seeds(W, H, jnp.uint32(0))
-
-    ref_color, ref_rays = trace_wavefront_pooled(
-        box_dev, o, d, sx, sy, num_bounces=2, traversal="pallas",
-        sort_secondary=True,
-    )
-    fn = make_pooled_sharded_render(
-        mesh, box_dev, num_bounces=2, traversal="pallas",
-        rebalance=True,
-    )
-    color, rays = fn(dev, o, d, sx, sy)
-    np.testing.assert_allclose(np.asarray(color), np.asarray(ref_color),
-                               rtol=1e-5, atol=1e-6)
-    assert float(rays) == pytest.approx(float(ref_rays))
-
-
-@pytest.mark.slow
-def test_anyhit_sharded_tiles_and_pooled(monkeypatch, tmp_path_factory):
-    """Any-hit last-bounce kernels inside shard_map (round-3 VERDICT:
-    zero coverage): an emissive-free scene with VKPT_ANYHIT=1 and
-    traversal='pallas' dispatches the quad any-hit kernel on the last
-    bounce inside BOTH the sharded tile render and the rebalanced
-    pooled wavefront, and matches the single-chip renders."""
-    import jax
-
-    from assets.procedural import make_atrium
-    from vulkan_pathtracer_tpu.ops import pallas_pair as pp
-    from vulkan_pathtracer_tpu.parallel.rebalance import (
-        make_pooled_sharded_render,
-    )
-    from vulkan_pathtracer_tpu.render.pipeline import (
-        _pixel_seeds, generate_rays,
-    )
-    from vulkan_pathtracer_tpu.render.wavefront import (
-        trace_wavefront_pooled,
-    )
-
-    path = str(tmp_path_factory.mktemp("mc_anyhit") / "atrium.glb")
-    make_atrium(path, detail=0.08)
-    base = build_device_scene(gltf.load(path), build_bvh=True)
-    assert base.emissive_free
-
-    for env in ("VKPT_PACKET", "VKPT_PAIR_PACKET", "VKPT_QUAD_PACKET"):
-        monkeypatch.setenv(env + "_PRIMARY", "256")
-        monkeypatch.setenv(env + "_SECONDARY", "256")
-    monkeypatch.setenv("VKPT_ANYHIT", "1")
-    monkeypatch.setenv("VKPT_ANYHIT_PACKET", "256")
-
-    calls = {"n": 0}
-    real_anyhit = pp.pallas_quad_any_hit
-
-    def counting(*a, **k):
-        calls["n"] += 1
-        return real_anyhit(*a, **k)
-
-    monkeypatch.setattr(pp, "pallas_quad_any_hit", counting)
-    jax.clear_caches()
-
-    mesh = make_render_mesh(4)
-    dev = replicate_scene(base, mesh)
-    pos = jnp.asarray([0.0, 2.0, 6.0])
-    hor = jnp.asarray([4.0, 0.0, 0.0])
-    ver = jnp.asarray([0.0, 4.0, 0.0])
-    fwd = jnp.asarray([0.0, 0.0, -1.0])
-
-    W, H = 16, 16
-    sharded = make_sharded_render(
-        mesh, dev, num_samples=1, num_bounces=2,
-        width=W, height=H, traversal="pallas",
-    )
-    img_sharded, rays_sharded = sharded(dev, pos, hor, ver, fwd,
-                                        jnp.uint32(0))
-    img_single, rays_single = render_frame(
-        base, pos, hor, ver, fwd, jnp.uint32(0),
-        num_samples=1, num_bounces=2, width=W, height=H,
-        traversal="pallas",
-    )
-    assert calls["n"] > 0, "any-hit kernel never dispatched under shard_map"
-    np.testing.assert_array_equal(np.asarray(img_sharded),
-                                  np.asarray(img_single))
-    assert float(rays_sharded) == float(rays_single)
-
-    # Rebalanced pooled wavefront: the production multi-chip program.
-    o, d = generate_rays(pos, hor, ver, fwd, W, H)
-    sx, sy = _pixel_seeds(W, H, jnp.uint32(0))
-    ref_color, ref_rays = trace_wavefront_pooled(
-        base, o, d, sx, sy, num_bounces=2, traversal="pallas",
-        sort_secondary=True,
-    )
-    before = calls["n"]
-    fn = make_pooled_sharded_render(
-        mesh, base, num_bounces=2, traversal="pallas", rebalance=True,
-    )
-    color, rays = fn(dev, o, d, sx, sy)
-    assert calls["n"] > before, \
-        "any-hit kernel never dispatched in the pooled sharded path"
-    np.testing.assert_allclose(np.asarray(color), np.asarray(ref_color),
-                               rtol=1e-5, atol=1e-6)
-    assert float(rays) == pytest.approx(float(ref_rays))
-
-
 def test_height_divisibility_error(box_dev):
     mesh = make_render_mesh(8)
     with pytest.raises(ValueError):

@@ -110,121 +110,3 @@ def test_ray_chunking_is_exact(box_glb):
     np.testing.assert_allclose(np.asarray(img_a), np.asarray(img_b),
                                atol=1e-6)
     assert float(rays_a) == float(rays_b)
-
-
-def test_refit_regenerates_pair_table(columns_glb):
-    """After a device refit the pair-stack table must reflect the new
-    boxes: pair-kernel traversal over the refitted scene == XLA
-    traversal over the same refitted scene."""
-    import dataclasses
-
-    import jax.numpy as jnp
-
-    from vulkan_pathtracer_tpu.models import gltf
-    from vulkan_pathtracer_tpu.models.device_scene import (
-        build_device_scene,
-    )
-    from vulkan_pathtracer_tpu.ops.pallas_pair import (
-        pallas_pair_closest_hit,
-    )
-    from vulkan_pathtracer_tpu.ops.refit import refit_scene
-    from vulkan_pathtracer_tpu.ops.traverse import bvh_closest_hit
-
-    scene = gltf.load(columns_glb)
-    dev = build_device_scene(scene, build_bvh=True)
-    # Shift all geometry; refit must track it.
-    shift = jnp.asarray([[0.5, 0.25, -0.75]], jnp.float32)
-    moved = dataclasses.replace(dev, tri_v0=dev.tri_v0 + shift)
-    refitted = refit_scene(moved)
-
-    rng = np.random.default_rng(5)
-    o = jnp.asarray(rng.uniform(-8, 8, size=(700, 3)).astype(np.float32))
-    d = rng.normal(size=(700, 3))
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    d = jnp.asarray(d.astype(np.float32))
-
-    ref = bvh_closest_hit(refitted, o, d)
-    got = pallas_pair_closest_hit(refitted, o, d, interpret=True,
-                                  packet=512)
-    np.testing.assert_allclose(np.asarray(got.t), np.asarray(ref.t),
-                               rtol=1e-5, atol=1e-5)
-
-
-def test_refit_regenerates_quad_table(columns_glb):
-    """Quad-table regeneration through the static (src, enc) maps:
-    (a) on unchanged geometry it reproduces the baked rows exactly,
-    (b) after a shift+refit the quad kernel agrees with XLA."""
-    import dataclasses
-
-    import jax.numpy as jnp
-
-    from vulkan_pathtracer_tpu.models import gltf
-    from vulkan_pathtracer_tpu.models.device_scene import (
-        build_device_scene,
-    )
-    from vulkan_pathtracer_tpu.ops.pallas_pair import (
-        pallas_quad_closest_hit,
-    )
-    from vulkan_pathtracer_tpu.ops.refit import refit_scene
-    from vulkan_pathtracer_tpu.ops.traverse import bvh_closest_hit
-
-    scene = gltf.load(columns_glb)
-    dev = build_device_scene(scene, build_bvh=True)
-
-    same = refit_scene(dev)
-    np.testing.assert_array_equal(np.asarray(same.bvh_quad),
-                                  np.asarray(dev.bvh_quad))
-
-    shift = jnp.asarray([[0.3, -0.2, 0.6]], jnp.float32)
-    refitted = refit_scene(
-        dataclasses.replace(dev, tri_v0=dev.tri_v0 + shift))
-    rng = np.random.default_rng(7)
-    o = jnp.asarray(rng.uniform(-8, 8, size=(600, 3)).astype(np.float32))
-    d = rng.normal(size=(600, 3))
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    d = jnp.asarray(d.astype(np.float32))
-    ref = bvh_closest_hit(refitted, o, d)
-    got = pallas_quad_closest_hit(refitted, o, d, interpret=True,
-                                  packet=512)
-    np.testing.assert_allclose(np.asarray(got.t), np.asarray(ref.t),
-                               rtol=1e-5, atol=1e-5)
-
-
-def test_refit_regenerates_oct_table(columns_glb):
-    """Oct-table regeneration through the static (src, enc) maps:
-    (a) on unchanged geometry it reproduces the baked rows exactly,
-    (b) after a shift+refit the oct kernel agrees with XLA."""
-    import dataclasses
-
-    import jax.numpy as jnp
-
-    from vulkan_pathtracer_tpu.models import gltf
-    from vulkan_pathtracer_tpu.models.device_scene import (
-        build_device_scene,
-    )
-    from vulkan_pathtracer_tpu.ops.pallas_pair import (
-        pallas_oct_closest_hit,
-    )
-    from vulkan_pathtracer_tpu.ops.refit import refit_scene
-    from vulkan_pathtracer_tpu.ops.traverse import bvh_closest_hit
-
-    scene = gltf.load(columns_glb)
-    dev = build_device_scene(scene, build_bvh=True)
-
-    same = refit_scene(dev)
-    np.testing.assert_array_equal(np.asarray(same.bvh_oct),
-                                  np.asarray(dev.bvh_oct))
-
-    shift = jnp.asarray([[0.3, -0.2, 0.6]], jnp.float32)
-    refitted = refit_scene(
-        dataclasses.replace(dev, tri_v0=dev.tri_v0 + shift))
-    rng = np.random.default_rng(8)
-    o = jnp.asarray(rng.uniform(-8, 8, size=(600, 3)).astype(np.float32))
-    d = rng.normal(size=(600, 3))
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    d = jnp.asarray(d.astype(np.float32))
-    ref = bvh_closest_hit(refitted, o, d)
-    got = pallas_oct_closest_hit(refitted, o, d, interpret=True,
-                                 packet=512)
-    np.testing.assert_allclose(np.asarray(got.t), np.asarray(ref.t),
-                               rtol=1e-5, atol=1e-5)

@@ -163,47 +163,32 @@ def test_joint_progressive_batch_matches_sequential(columns_glb):
     assert float(rays_j) < B * 40 * 40 * 3
 
 
-def test_chunked_render_matches_unchunked(request, monkeypatch):
-    """ray_chunk lax.map chunking is pure scheduling: the chunked
-    render (which forces ONE stack-kernel family for every phase —
-    mixed pair+quad bodies inside a chunked trace faulted the TPU
-    worker, see wavefront.uniform_stack_kernel) must match unchunked
-    renders to float-reassociation tolerance and trace EXACTLY the
-    same ray count.  Bit-exactness is not claimed: chunking changes
-    the compiled program's shapes, and XLA's fusion/reassociation
-    choices differ between programs (measured: 69/12288 elements off
-    by 2^-18 on CPU even with identical kernels and no sorting)."""
+def test_chunked_render_matches_unchunked(request):
+    """ray_chunk lax.map chunking is pure scheduling: chunked renders
+    must match unchunked renders to float-reassociation tolerance and
+    trace EXACTLY the same ray count.  Bit-exactness is not claimed:
+    chunking changes the compiled program's shapes, and XLA's
+    fusion/reassociation choices differ between programs (measured:
+    69/12288 elements off by 2^-18 on CPU with no sorting)."""
     import jax.numpy as jnp
 
     from vulkan_pathtracer_tpu.models import gltf
     from vulkan_pathtracer_tpu.models.device_scene import build_device_scene
     from vulkan_pathtracer_tpu.render.pipeline import render_rows
-    from vulkan_pathtracer_tpu.render.wavefront import uniform_stack_kernel
 
-    for env in ("VKPT_PACKET", "VKPT_PAIR_PACKET", "VKPT_QUAD_PACKET"):
-        monkeypatch.setenv(env + "_PRIMARY", "256")
-        monkeypatch.setenv(env + "_SECONDARY", "256")
     scene = gltf.load(request.getfixturevalue("cornell_glb"))
     dev = build_device_scene(scene, build_bvh=True)
     cam = Camera(aspect_ratio=1.0,
                  position=np.array([0, 1, 3], np.float32))
     cam.set_orientation(yaw=180.0, pitch=0.0)
     pos, hor, ver, fwd = (jnp.asarray(v) for v in cam.push_constants())
-    kw = dict(num_samples=1, num_bounces=2, width=64, height=64,
-              traversal="pallas", sort_secondary=True)
-    mixed, rays_mixed = render_rows(dev, pos, hor, ver, fwd,
-                                    jnp.uint32(3), ray_chunk=0, **kw)
-    for family in ("quad", "pair"):
-        with uniform_stack_kernel(family):
-            base, rays_base = render_rows(dev, pos, hor, ver, fwd,
-                                          jnp.uint32(3), ray_chunk=0,
-                                          **kw)
-        monkeypatch.setenv("VKPT_CHUNK_KERNEL", family)
+    for traversal in ("bvh", "brute"):
+        kw = dict(num_samples=1, num_bounces=2, width=64, height=64,
+                  traversal=traversal, sort_secondary=True)
+        base, rays_base = render_rows(dev, pos, hor, ver, fwd,
+                                      jnp.uint32(3), ray_chunk=0, **kw)
         img, rays = render_rows(dev, pos, hor, ver, fwd, jnp.uint32(3),
                                 ray_chunk=1024, **kw)
         np.testing.assert_allclose(np.asarray(img), np.asarray(base),
                                    rtol=1e-4, atol=1e-5)
         assert float(rays) == float(rays_base)
-        np.testing.assert_allclose(np.asarray(img), np.asarray(mixed),
-                                   rtol=1e-4, atol=1e-5)
-        assert float(rays) == float(rays_mixed)

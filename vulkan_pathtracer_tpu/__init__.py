@@ -1,4 +1,4 @@
-"""vulkan_pathtracer_tpu — a TPU-native wavefront path tracer.
+"""vulkan_pathtracer_tpu — a JAX wavefront path tracer.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
 ``antlilja/vulkan-pathtracer`` reference (Zig + Vulkan KHR ray tracing +
@@ -8,10 +8,11 @@ first-class code here; everything the reference did explicitly (glTF
 contract, material math, BRDF sampling, RNG, camera, CLI semantics) is
 reproduced with the same numeric semantics.
 
-Layer map (mirrors SURVEY.md §1, re-designed TPU-first):
+Layer map (mirrors SURVEY.md §1):
 
 - ``ops``      — device math kernels: RNG, BRDF, intersection, BVH,
-                 texture sampling (JAX + Pallas).
+                 texture sampling, the GPU traversal kernel (JAX +
+                 Pallas).
 - ``models``   — scene/asset model: glTF loader, materials, textures,
                  camera, flattened device scene (SoA arrays).
 - ``render``   — the compiled render pipeline: wavefront bounce loop,
@@ -26,7 +27,7 @@ __version__ = "0.1.0"
 from vulkan_pathtracer_tpu.utils.config import RenderConfig  # noqa: F401
 
 # Lazy top-level API (PEP 562): the primary objects a framework user
-# needs, without importing jax/PIL at package-import time.
+# needs, without importing jax at package-import time.
 _LAZY = {
     "Camera": ("vulkan_pathtracer_tpu.models.camera", "Camera"),
     "load_scene": ("vulkan_pathtracer_tpu.models.gltf", "load"),

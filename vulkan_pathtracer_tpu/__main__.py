@@ -1,17 +1,5 @@
-"""python -m vulkan_pathtracer_tpu — headless render driver.
+"""python -m vulkan_pathtracer_tpu — headless render driver."""
 
-The platform override must land before any package module creates a
-device array, so it happens here, ahead of the app import.
-"""
-
-import os
-
-_plat = os.environ.get("VKPT_PLATFORM")
-if _plat:
-    import jax
-
-    jax.config.update("jax_platforms", _plat)
-
-from vulkan_pathtracer_tpu.app.main import main  # noqa: E402
+from vulkan_pathtracer_tpu.app.main import main
 
 raise SystemExit(main())

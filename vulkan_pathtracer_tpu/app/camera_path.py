@@ -1,7 +1,7 @@
 """Scripted camera paths — the headless replacement for WASD/mouse.
 
-The reference's interactivity (Input.zig + Camera.update) has no TPU
-analog; instead a JSON camera path drives the animated fly-through
+The reference's interactivity (Input.zig + Camera.update) has no
+headless analog; instead a JSON camera path drives the animated fly-through
 (BASELINE config[4]).  Path format: a list of keyframes
 
     [{"time": 0.0, "position": [x,y,z], "yaw": deg, "pitch": deg}, ...]

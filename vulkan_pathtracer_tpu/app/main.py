@@ -23,6 +23,7 @@ from vulkan_pathtracer_tpu.models.device_scene import build_device_scene
 from vulkan_pathtracer_tpu.render.output import Accumulator, upsample_nearest
 from vulkan_pathtracer_tpu.render.pipeline import RenderPipeline
 from vulkan_pathtracer_tpu.utils.cli import parse_args
+from vulkan_pathtracer_tpu.utils.compile_cache import enable_compile_cache
 from vulkan_pathtracer_tpu.utils.config import default_max_leaf
 from vulkan_pathtracer_tpu.utils.png import write_png
 from vulkan_pathtracer_tpu.utils.stats import Stats
@@ -36,18 +37,9 @@ def main(argv=None) -> int:
 
     import jax
 
-    # Environment overrides: VKPT_PLATFORM forces a backend even when a
-    # site customization pre-selected one (JAX_PLATFORMS in the env can
-    # be too late once jax is imported at interpreter start);
-    # JAX_COMPILATION_CACHE_DIR-style persistent caching makes repeated
-    # CLI invocations skip recompiles.
-    plat = os.environ.get("VKPT_PLATFORM")
-    if plat:
-        jax.config.update("jax_platforms", plat)
-    cache_dir = os.environ.get("VKPT_COMPILE_CACHE", "/tmp/vkpt_jax_cache")
-    if cache_dir:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    # The device comes from plain JAX_PLATFORMS; the persistent compile
+    # cache makes repeated CLI invocations skip recompiles.
+    enable_compile_cache()
 
     if config.enable_validation:
         jax.config.update("jax_debug_nans", True)
@@ -68,10 +60,7 @@ def main(argv=None) -> int:
             build_instanced_scene,
         )
 
-        # Same measured-best leaf size (14) as the flat path; the
-        # packet kernel's instanced leaf decode uses the identical
-        # per-leaf MT loop, so the flat-path A/B (3.07 vs 2.75
-        # Mrays/s at 14 vs 8) carries over.  VKPT_LEAF overrides.
+        # Leaf 14 for two-level scenes.  VKPT_LEAF overrides.
         dev = build_instanced_scene(
             scene, max_leaf_size=int(os.environ.get("VKPT_LEAF", "14")),
         )
@@ -80,8 +69,7 @@ def main(argv=None) -> int:
             f"{dev.inst_inv.shape[0]} instances", file=sys.stderr,
         )
     else:
-        # Size-keyed leaf policy (measured; utils/config.py has the
-        # numbers).  VKPT_LEAF overrides.
+        # Size-keyed leaf policy (utils/config.py).  VKPT_LEAF overrides.
         default_leaf = default_max_leaf(scene.triangle_count)
         dev = build_device_scene(
             scene, build_bvh=(config.traversal != "brute"),

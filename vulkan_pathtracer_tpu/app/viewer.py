@@ -2,7 +2,7 @@
 
 The reference is an interactive app: WASD + space/ctrl movement and
 mouse-drag look over a live swapchain (main.zig:232-373, Input.zig,
-Camera.zig:48-79).  A TPU box has no display, but a terminal does:
+Camera.zig:48-79).  A headless machine has no display, but a terminal does:
 this viewer renders frames and presents them as 24-bit-color ANSI
 half-blocks (one ``▀`` glyph = two vertically stacked pixels), with
 keyboard input mapped onto the same Camera.look/move semantics:

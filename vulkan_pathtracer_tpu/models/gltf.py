@@ -13,8 +13,8 @@ Reproduces the reference's load-time contract (Scene.zig:79-546):
 - Materials: factors quantized to RGBA8 words, texture indices with
   0xffffffff = none (Scene.zig:448-485).
 - Textures decoded to RGBA8 with a host thread pool
-  (Scene.zig:354-446; decode itself is native code — PIL's C decoders
-  here, stb_image there).
+  (Scene.zig:354-446; stb_image there, the stdlib PNG decoder in
+  utils/png.py here — PNG textures only).
 - Node graph flattened iteratively with an explicit stack
   (Scene.zig:487-546).  The reference composes mesh-node transforms as
   ``S · T · inherited · R`` (zalgebra's translate/scale pre-multiply)
@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import base64
 import concurrent.futures
-import io
 import json
 import os
 import struct
@@ -314,12 +313,11 @@ def _load_primitive(gltf: dict, buffers: List[bytes], prim: dict) -> Primitive:
 # Texture decode (threaded, Scene.zig:354-446)
 # --------------------------------------------------------------------------
 def _decode_image(payload: bytes) -> Texture:
-    """Force RGBA8 like stbi_load_from_memory(..., 4) — stb_image.zig:3-28."""
-    from PIL import Image
+    """Force RGBA8 like stbi_load_from_memory(..., 4) — stb_image.zig:3-28.
+    PNG only (stdlib decoder, utils/png.py); other formats raise."""
+    from vulkan_pathtracer_tpu.utils.png import decode_png
 
-    with Image.open(io.BytesIO(payload)) as img:
-        rgba = img.convert("RGBA")
-        data = np.asarray(rgba, dtype=np.uint8)
+    data = decode_png(payload)
     return Texture(data=data, width=data.shape[1], height=data.shape[0])
 
 

@@ -195,7 +195,7 @@ def sample_brdf(shading: ShadingInfo, rx, ry):
     """Mixture sampling — brdf.glsl:124-139.
 
     Both branches are evaluated and selected with where() (no lane
-    divergence on TPU); the random-number remapping per branch matches
+    divergence); the random-number remapping per branch matches
     the GLSL exactly.
     """
     col0, col1, col2 = get_shading_space(shading.normal)

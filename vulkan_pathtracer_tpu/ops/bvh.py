@@ -2,7 +2,7 @@
 
 The reference never builds a BVH — the Vulkan driver does it inside
 ``vkCmdBuildAccelerationStructuresKHR`` (RaytracingPass.zig:451-465,
-``prefer_fast_trace``).  On TPU the acceleration structure is ours to
+``prefer_fast_trace``).  Here the acceleration structure is ours to
 design.  This builder is LBVH-flavored:
 
 1. 30-bit Morton codes of triangle-centroid positions, normalized to

@@ -1,11 +1,11 @@
-"""Device-side (on-TPU) LBVH build — SURVEY §7 M2 completed.
+"""Device-side LBVH build — SURVEY §7 M2 completed.
 
 The reference gets per-frame acceleration-structure builds from the
 Vulkan driver (RaytracingPass.zig:451-465, Tlas.zig:157-171,
 ``prefer_fast_trace``); rigid motion is covered here by the instanced
 TLAS refit, but DEFORMING geometry needs a real device rebuild.  This
 module builds the full traversal structure (octant-ordered skip-
-pointer arrays + packed node records + dense rows + leaf blocks) as
+pointer arrays + packed node records + leaf blocks) as
 one jittable JAX program, so an animated mesh re-sorts and re-builds
 every frame without a host round trip.
 
@@ -13,8 +13,7 @@ Structure (everything vectorized, no data-dependent shapes):
 
 1. 30-bit Morton codes of triangle centroids; one
    ``lax.sort_key_val`` orders triangles (the "device radix sort"
-   duty: measured on v5e the XLA sort is NOT the bottleneck —
-   28 ms argsort @ 2M keys vs a 40 ms budget; see ROADMAP round-3).
+   duty).
 2. Fixed leaf blocks of ``block`` consecutive sorted triangles (the
    host builder's variable ranges are padded to blocks downstream
    anyway; fixed blocks keep every shape static).
@@ -49,10 +48,6 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-
-from vulkan_pathtracer_tpu.ops.mxu_mt import (
-    build_mt_coef_rows_device as _coefs_device,
-)
 
 BIG = np.float32(3e38)
 
@@ -345,10 +340,6 @@ def device_rebuild_scene(template, tri_v0, tri_e1, tri_e2, tri_gn,
     Returns a new DeviceScene with identical array shapes each frame
     (jit-friendly: wrap the caller in jax.jit).
     """
-    from vulkan_pathtracer_tpu.models.device_scene import (
-        build_dense_rows,
-    )
-
     t = template.num_triangles
     block = template.max_leaf_size
     octants = template.bvh_orders
@@ -385,39 +376,6 @@ def device_rebuild_scene(template, tri_v0, tri_e1, tri_e2, tri_gn,
             return jnp.pad(arr, pad)
         return arr
 
-    from vulkan_pathtracer_tpu.ops.pallas_pair import (
-        build_pair_rows_device,
-        build_quad_rows_device,
-        nary_maps_device,
-    )
-
-    # Pair-stack table over the Karras build order (root = internal
-    # 0); Ni = L - 1 internals (static given t/block).
-    n_build = built["left"].shape[0]
-    bmin_build = jnp.zeros((n_build, 3), jnp.float32)
-    bmax_build = jnp.zeros((n_build, 3), jnp.float32)
-    # Build-order boxes: octant 0's perm maps preorder -> build id.
-    perm0 = built["perm"][:n_nodes]
-    bmin_build = bmin_build.at[perm0].set(built["bmin"][:n_nodes])
-    bmax_build = bmax_build.at[perm0].set(built["bmax"][:n_nodes])
-    ni = max(n_build - (n_build + 1) // 2, 1)
-    pair = quad = qsrc = qenc = None
-    if n_build > 1:
-        pair = build_pair_rows_device(
-            bmin_build, bmax_build, built["left"], built["right"],
-            built["leaf_first_build"], block,
-        )[:ni]
-        # Quad table + its refit maps from the SAME Karras topology —
-        # the template's host-built quad/oct tables describe the
-        # pre-rebuild tree and would silently traverse stale geometry
-        # (the dispatcher prefers quad on secondaries).
-        qsrc, qenc = nary_maps_device(
-            built["left"], built["right"], built["leaf_first_build"],
-            block, 4)
-        qsrc, qenc = qsrc[:ni], qenc[:ni]
-        quad = build_quad_rows_device(bmin_build, bmax_build,
-                                      qsrc, qenc)
-
     tail = jnp.stack(
         [jax.lax.bitcast_convert_type(built["skip_local"], jnp.float32),
          jax.lax.bitcast_convert_type(built["leaf_first"], jnp.float32)],
@@ -426,12 +384,6 @@ def device_rebuild_scene(template, tri_v0, tri_e1, tri_e2, tri_gn,
                              axis=1)
     skip_offsets = (jnp.arange(octants, dtype=jnp.int32)
                     .repeat(n_nodes) * n_nodes)
-    rows = build_dense_rows(
-        built["bmin"], built["bmax"],
-        built["skip_local"].astype(jnp.float32),
-        built["leaf_first"].astype(jnp.float32),
-        octants, jnp,
-    )
     flat = jnp.concatenate(
         [built["tri_v0"], built["tri_e1"], built["tri_e2"]], axis=1)
     return dataclasses.replace(
@@ -457,28 +409,7 @@ def device_rebuild_scene(template, tri_v0, tri_e1, tri_e2, tri_gn,
         bvh_leaf_count_build=built["leaf_count_build"],
         bvh_packed=packed,
         bvh_packed_tail=tail,
-        bvh_rows=rows,
-        bvh_pair=pair,
-        bvh_quad=quad,
-        bvh_quad_src=qsrc,
-        bvh_quad_enc=qenc,
-        # No device oct/frontier collapse: null the stale host tables
-        # so those tiers simply don't dispatch on a rebuilt scene (a
-        # stale table would traverse the OLD topology's boxes/links).
-        bvh_oct=None,
-        bvh_oct_src=None,
-        bvh_oct_enc=None,
-        bvh_frontier=None,
-        bvh_frontier_src=None,
-        bvh_frontier_enc=None,
         tri_blocks=flat.reshape(n_slots // block, block * 9),
-        # Rebuilt geometry invalidates the MXU leaf coefficients —
-        # regenerate on device iff the template carried them (stale
-        # coefs would silently intersect the OLD triangles).
-        tri_coefs=(_coefs_device(
-            built["tri_v0"], built["tri_e1"], built["tri_e2"], block)
-            if template.tri_coefs is not None else None),
-        bvh_wide_nodes=None,
         bvh_depth=built["depth"],
         bvh_orders=octants,
         max_leaf_size=block,

@@ -10,9 +10,8 @@ the build; only AABBs are recomputed on-device:
 2. Internal AABBs by a fixed-point bottom-up sweep: every internal
    node takes the union of its children; after ``depth`` sweeps the
    root is correct.  Children always have larger preorder indices than
-   parents, but the sweep is written as whole-array gathers (VPU
-   friendly) rather than per-level scatters — depth x O(Nn) work,
-   which for scene-scale Nn is microseconds on a TPU.
+   parents, but the sweep is written as whole-array gathers rather
+   than per-level scatters — depth x O(Nn) work.
 
 Refit preserves correctness under arbitrary motion; quality degrades
 only if triangles migrate far from their Morton-ordered neighborhoods
@@ -82,68 +81,11 @@ def refit_scene(scene):
     )
     bmin_s = jnp.take(bmin, scene.bvh_perm, axis=0)
     bmax_s = jnp.take(bmax, scene.bvh_perm, axis=0)
-    # The 8-wide tiles are not refitted (host-built); drop them so
-    # animated scenes use the binary kernel until a device-side wide
-    # refit exists.
-    updates = dict(bvh_bmin=bmin_s, bvh_bmax=bmax_s, bvh_wide_nodes=None)
-    if getattr(scene, "bvh_pair", None) is not None:
-        from vulkan_pathtracer_tpu.ops.pallas_pair import (
-            build_pair_rows_device,
-        )
-
-        ni = scene.bvh_pair.shape[0]
-        updates["bvh_pair"] = build_pair_rows_device(
-            bmin, bmax, scene.bvh_left, scene.bvh_right,
-            scene.bvh_leaf_first_build, scene.max_leaf_size,
-        )[:ni]
-    for wide in ("quad", "oct"):
-        if getattr(scene, f"bvh_{wide}_src", None) is None:
-            continue
-        if jax.config.jax_debug_nans:
-            # Quad/oct rows mark empty slots with NaN boxes (the only
-            # never-hit encoding under per-axis min/max slabs);
-            # jax_debug_nans would flag the regenerated table, so
-            # animated scenes drop to the pair kernel under
-            # --enable-validation.
-            updates[f"bvh_{wide}"] = None
-        else:
-            from vulkan_pathtracer_tpu.ops.pallas_pair import (
-                _build_nary_rows_device,
-            )
-
-            updates[f"bvh_{wide}"] = _build_nary_rows_device(
-                bmin, bmax, getattr(scene, f"bvh_{wide}_src"),
-                getattr(scene, f"bvh_{wide}_enc"))
-    if getattr(scene, "bvh_frontier_src", None) is not None:
-        if jax.config.jax_debug_nans:
-            # Frontier tiles mark empty slots with NaN too.
-            updates["bvh_frontier"] = None
-        else:
-            from vulkan_pathtracer_tpu.ops.pallas_frontier import (
-                build_frontier_rows_device,
-            )
-
-            updates["bvh_frontier"] = build_frontier_rows_device(
-                bmin, bmax, scene.bvh_frontier_src,
-                scene.bvh_frontier_enc)
+    updates = dict(bvh_bmin=bmin_s, bvh_bmax=bmax_s)
     if scene.bvh_packed is not None:
         updates["bvh_packed"] = jnp.concatenate(
             [bmin_s, bmax_s, scene.bvh_packed_tail], axis=1
         )
-        if scene.bvh_rows is not None:
-            from vulkan_pathtracer_tpu.models.device_scene import (
-                build_dense_rows,
-            )
-
-            meta = jax.lax.bitcast_convert_type(
-                scene.bvh_packed_tail, jnp.int32
-            )
-            updates["bvh_rows"] = build_dense_rows(
-                bmin_s, bmax_s,
-                meta[:, 0].astype(jnp.float32),
-                meta[:, 1].astype(jnp.float32),
-                scene.bvh_orders, jnp,
-            )
         n_rows = scene.tri_blocks.shape[0] * scene.max_leaf_size
         flat = jnp.concatenate(
             [scene.tri_v0[:n_rows], scene.tri_e1[:n_rows],

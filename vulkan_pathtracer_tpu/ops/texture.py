@@ -6,9 +6,9 @@ repeat addressing on u/v, no mips (max_lod = 0), unnormalized = false
 (RaytracingPass.zig:505), i.e. **no sRGB decode**: texels are read
 linearly as byte/255.
 
-TPU design: all textures live in one (P, 4) uint8 texel pool with
+Design: all textures live in one (P, 4) uint8 texel pool with
 per-texture offset/width/height tables; a sample is 4 pool gathers +
-VPU lerp math, fully batched over rays.  Texture index 0 is a 1x1
+lerp math, fully batched over rays.  Texture index 0 is a 1x1
 white dummy so "no texture" lanes run the same code path and multiply
 by exactly 1.0 (matching the factor-only branch of
 material.glsl:36-53).

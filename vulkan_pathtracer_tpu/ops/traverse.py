@@ -1,11 +1,9 @@
-"""Stackless BVH traversal over skip-pointer-linearized nodes.
+"""Stackless BVH traversal over skip-pointer-linearized nodes — the
+plain XLA reference.
 
-This is the TPU replacement for the hardware TLAS traversal the
-reference gets from ``traceRayEXT`` (ray_gen.rgen:50-63).  Design
-(SURVEY.md §7 hard-part #1): TPUs are (8,128)-lane vector machines
-with no per-lane program counters, so per-ray traversal state must be
-O(1) registers, not a stack.  Skip-pointer (escape-index) traversal
-gives exactly that:
+The reference gets traversal from the hardware TLAS behind
+``traceRayEXT`` (ray_gen.rgen:50-63).  Skip-pointer (escape-index)
+traversal keeps per-ray state at O(1), with no stack:
 
     state      = one int32 node cursor per ray
     box hit    -> cursor + 1          (preorder: first child)
@@ -13,15 +11,13 @@ gives exactly that:
     done       <=> cursor == n_nodes
 
 Every while-loop iteration advances *all* rays by one node: an AABB
-slab test (VPU elementwise) plus, for rays sitting on a leaf, a
-max_leaf_size-unrolled Möller–Trumbore against the leaf's contiguous
-triangle range.  Rays that finish early idle until the slowest ray in
-the dispatch finishes — ray chunking + Morton ray sorting (see
-render.wavefront) bound that waste.
+slab test plus, for rays sitting on a leaf, a max_leaf_size-unrolled
+Möller–Trumbore against the leaf's contiguous triangle block.  Rays
+that finish early idle until the slowest ray in the dispatch finishes.
+All node/triangle fetches are ``jnp.take`` gathers.
 
-All node/triangle fetches are `jnp.take` gathers over SoA arrays in
-HBM; XLA vectorizes them. A Pallas kernel with VMEM-cached top levels
-is the planned next optimization step.
+On a GPU the same algorithm runs per ray in ``ops.traverse_gpu``;
+this module stays the reference it is tested against.
 """
 
 from __future__ import annotations
@@ -45,18 +41,6 @@ def _safe_inv(d):
     )
 
 
-# Max f32 elements the per-iteration leaf-row gather may materialize
-# in one program: rows = take(tri_blocks, ...) is (N, block*9) LIVE
-# inside the while body.  2.07M rays x 126 lanes (leaf 14) ~ 261M
-# elements (1.04 GB) is measured-good; 2.07M x 252 (leaf 28) KILLED
-# the TPU worker (round-4 bisect, experiments/leaf28_crash_bisect.py
-# stage 3 — no clean OOM, the worker process dies).  Above the
-# budget, rays are processed in lax.map chunks sized back to the
-# known-good gather footprint; per-ray results are bit-identical
-# (chunks are independent).
-_ROW_GATHER_BUDGET = 1 << 28
-
-
 def bvh_closest_hit(scene, origin, direction, active=None,
                     tmin=TMIN, tmax=TMAX, seed=None) -> Hit:
     """Closest-hit query for a batch of rays against scene's BVH.
@@ -66,70 +50,6 @@ def bvh_closest_hit(scene, origin, direction, active=None,
     seed: optional prior Hit that pre-tightens t_best (results
     unchanged — the seed is itself a valid hit).
     """
-    n = origin.shape[0]
-    row_w = (scene.tri_blocks.shape[1]
-             if getattr(scene, "bvh_packed", None) is not None
-             and scene.tri_blocks is not None else 0)
-    if row_w and n * row_w > _ROW_GATHER_BUDGET:
-        return _bvh_closest_hit_chunked(
-            scene, origin, direction, active, tmin, tmax, seed,
-            chunk=max(1, _ROW_GATHER_BUDGET // row_w))
-    return _bvh_closest_hit_impl(
-        scene, origin, direction, active, tmin, tmax, seed)
-
-
-def _bvh_closest_hit_chunked(scene, origin, direction, active, tmin,
-                             tmax, seed, chunk):
-    """lax.map over ray chunks; pads to a whole number of chunks with
-    inactive rays and slices back.  Per-ray Hit results are BIT-exact
-    vs unchunked (rays are independent; tests/test_bvh.py
-    test_chunked_xla_traversal_bitexact).  A full jitted FRAME
-    containing this program may still differ from its unchunked twin
-    by ~1 ulp (measured max 1e-7 rel on the box scene): the changed
-    traversal sub-graph shifts XLA's fusion choices for surrounding
-    shading math — the same reassociation class as chunked wavefront
-    dispatch (ROADMAP round-3 finding 7)."""
-    n = origin.shape[0]
-    n_chunks = -(-n // chunk)
-    pad = n_chunks * chunk - n
-
-    def padded(x, fill):
-        if pad == 0:
-            return x
-        widths = ((0, pad),) + ((0, 0),) * (x.ndim - 1)
-        return jnp.pad(x, widths, constant_values=fill)
-
-    o = padded(origin, 0.0).reshape(n_chunks, chunk, 3)
-    d = padded(direction, 1.0).reshape(n_chunks, chunk, 3)
-    if active is None:
-        active = jnp.ones((n,), dtype=bool)
-    a = padded(active, False).reshape(n_chunks, chunk)
-    if seed is not None:
-        st = padded(seed.t, MISS_T).reshape(n_chunks, chunk)
-        stri = padded(seed.tri, -1).reshape(n_chunks, chunk)
-        su = padded(seed.u, 0.0).reshape(n_chunks, chunk)
-        sv = padded(seed.v, 0.0).reshape(n_chunks, chunk)
-
-        def run(args):
-            co, cd, ca, ct, ctri, cu, cv = args
-            return _bvh_closest_hit_impl(
-                scene, co, cd, ca, tmin, tmax,
-                Hit(t=ct, tri=ctri, u=cu, v=cv))
-
-        hit = jax.lax.map(run, (o, d, a, st, stri, su, sv))
-    else:
-        def run(args):
-            co, cd, ca = args
-            return _bvh_closest_hit_impl(
-                scene, co, cd, ca, tmin, tmax, None)
-
-        hit = jax.lax.map(run, (o, d, a))
-    return Hit(t=hit.t.reshape(-1)[:n], tri=hit.tri.reshape(-1)[:n],
-               u=hit.u.reshape(-1)[:n], v=hit.v.reshape(-1)[:n])
-
-
-def _bvh_closest_hit_impl(scene, origin, direction, active=None,
-                          tmin=TMIN, tmax=TMAX, seed=None) -> Hit:
     max_leaf_size = scene.max_leaf_size
     n = origin.shape[0]
     n_nodes = scene.bvh_skip.shape[0] // scene.bvh_orders

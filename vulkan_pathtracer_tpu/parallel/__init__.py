@@ -1,1 +1,1 @@
-"""Device mesh + sharded rendering (ICI collectives via shard_map)."""
+"""Device mesh + sharded rendering (collectives via shard_map)."""

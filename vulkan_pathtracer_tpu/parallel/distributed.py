@@ -1,12 +1,11 @@
 """Multi-host (multi-slice) initialization.
 
 The reference has no networking at all (SURVEY.md §2: no NCCL/MPI/
-Gloo/UCX anywhere); multi-host rendering is new capability here.  The
-TPU-native story needs no custom transport: ``jax.distributed`` forms
-the process group, every host contributes its local chips to one
-global mesh, and the same ``shard_map`` framebuffer tiling from
-parallel/sharding.py runs unchanged — XLA routes collectives over ICI
-within a slice and DCN across slices.
+Gloo/UCX anywhere); multi-host rendering is new capability here.  It needs no custom
+transport: ``jax.distributed`` forms the process group, every host
+contributes its local devices to one global mesh, and the same
+``shard_map`` framebuffer tiling from parallel/sharding.py runs
+unchanged — XLA routes the collectives (NCCL on GPUs).
 
 Single-host runs (including this dev environment) skip initialization
 entirely, so all code paths stay testable on one machine.
@@ -26,9 +25,8 @@ def initialize(coordinator_address: Optional[str] = None,
     """Initialize jax.distributed when running multi-host.
 
     Reads JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID
-    when arguments are omitted (also auto-detects on Cloud TPU pods
-    where jax.distributed.initialize() needs no arguments).  Returns
-    True when a multi-process group was formed.
+    when arguments are omitted.  Returns True when a multi-process
+    group was formed.
     """
     coordinator = coordinator_address or os.environ.get(
         "JAX_COORDINATOR_ADDRESS"
@@ -46,17 +44,11 @@ def initialize(coordinator_address: Optional[str] = None,
             process_id=pid,
         )
         return True
-    if os.environ.get("TPU_WORKER_HOSTNAMES") and os.environ.get(
-        "VKPT_AUTO_DISTRIBUTED"
-    ):
-        # Cloud TPU pod autodetection path.
-        jax.distributed.initialize()
-        return jax.process_count() > 1
     return False
 
 
 def global_mesh(tile_axis: str = "tiles"):
-    """A 1-D mesh over every chip across all processes."""
+    """A 1-D mesh over every device across all processes."""
     return jax.make_mesh((len(jax.devices()),), (tile_axis,))
 
 

@@ -5,7 +5,7 @@ physical device, one graphics queue).  Multi-chip scaling is new
 capability here (BASELINE.json configs[4]): a 1-D ``jax.sharding.Mesh``
 over the local devices, with the framebuffer tiled along the row axis
 ("image-space data parallelism", SURVEY.md §2 checklist).  Radiance
-tiles ride ICI via the collectives XLA inserts for the output sharding
+tiles ride the collectives XLA inserts for the output sharding
 (all-gather on host fetch), not any hand-rolled transport.
 """
 

@@ -1,11 +1,11 @@
 """Cross-chip ray-queue rebalancing — the SURVEY §2 parallelism
-checklist's stretch item, TPU-native.
+checklist's stretch item.
 
 In image-tile data parallelism every chip traces the bounce rays its
 own tile generated; enclosed regions keep bouncing while sky tiles go
 idle, so per-chip alive counts diverge.  The classic GPU answer is a
-global work queue; the TPU-native answer is a *balanced exchange over
-ICI* each bounce, built from two local sorts and one ``all_to_all``:
+global work queue; the answer here is a *balanced exchange over the
+device interconnect* each bounce, built from two local sorts and one ``all_to_all``:
 
   1. locally sort the packed wavefront by the production bounce key
      (direction octant, origin Morton; dead lanes keyed to the end);
@@ -16,7 +16,7 @@ ICI* each bounce, built from two local sorts and one ``all_to_all``:
      and a spread of key ranges;
   3. locally re-sort so traversal packets are coherent again.
 
-Everything rides ICI collectives under ``shard_map`` — no host round
+Everything rides device collectives under ``shard_map`` — no host round
 trips.  Results are exact: traversal and shading are per-lane, and
 each lane's color is routed home by a psum'd scatter-add at the end
 (every lane is written by exactly one chip).
@@ -106,11 +106,11 @@ def make_pooled_sharded_render(mesh: Mesh, scene_example: DeviceScene, *,
         n_chunks = m_local // local_chunk
         rays_traced = jnp.float32(0.0)
 
-        def chunk_fn(last, rr, phase):
-            # Emissive-free last bounce: the ANY-HIT kernel (sky/miss
+        def chunk_fn(last, rr):
+            # Emissive-free last bounce: the any-hit query (sky/miss
             # decision only) — mirrors trace_wavefront_pooled, so the
-            # rebalanced multi-chip program takes the same fast path
-            # production single-chip renders do.
+            # rebalanced multi-device program takes the same path
+            # single-device renders do.
             anyhit = last and _anyhit_enabled(scene)
 
             def fn(st):
@@ -126,8 +126,7 @@ def make_pooled_sharded_render(mesh: Mesh, scene_example: DeviceScene, *,
                             missed[:, None], atten * sky_color(cd), 0.0)
                         return (co, cd, atten, color2, csx, csy,
                                 jnp.zeros_like(c_alive))
-                    hit = _closest_hit(scene, co, cd, c_alive, traversal,
-                                       phase=phase)
+                    hit = _closest_hit(scene, co, cd, c_alive, traversal)
                     return _shade_and_extend(
                         scene, hit, co, cd, atten, color, csx, csy,
                         c_alive, last=last, rr=rr,
@@ -160,9 +159,8 @@ def make_pooled_sharded_render(mesh: Mesh, scene_example: DeviceScene, *,
                     state = _permute_state(state, key, _sort_chunk())
             last = j == num_bounces - 1
             rr = russian_roulette and (j + 1) >= rr_start_bounce
-            phase = "primary" if j == 0 else "secondary"
             st, counts = jax.lax.map(
-                chunk_fn(last, rr, phase),
+                chunk_fn(last, rr),
                 state.reshape(n_chunks, local_chunk, 16),
             )
             state = st.reshape(-1, 16)

@@ -4,7 +4,7 @@ Image-space data parallelism (SURVEY.md §2 parallelism checklist):
 the scene is replicated to every chip, the framebuffer is tiled along
 rows, and each device runs the full wavefront loop on its tile under
 ``shard_map``.  The output carries a row-sharded ``NamedSharding``;
-XLA's all-gather over ICI materializes the full frame only when the
+XLA's all-gather materializes the full frame only when the
 host (or a downstream replicated op) asks for it.
 
 An alternative ``mode="spp"`` shards *samples* instead: every device
@@ -130,12 +130,19 @@ class ShardedRenderPipeline:
             ray_chunk=config.ray_chunk,
         )
 
-    def render(self, camera, frame: int):
+    def render(self, camera, frame: int, present_order: bool = True):
+        """Same contract as RenderPipeline.render; the sharded frame is
+        always assembled in scanline order, so ``present_order`` has
+        nothing to skip."""
+        del present_order
         position, horizontal, vertical, forward = (
             jnp.asarray(v) for v in camera.push_constants()
         )
         return self._fn(self.scene, position, horizontal, vertical,
                         forward, jnp.uint32(frame))
+
+    def to_present(self, image):
+        return image
 
 
 def replicate_scene(scene: DeviceScene, mesh: Mesh) -> DeviceScene:

@@ -6,7 +6,7 @@
   --render-resolution-divider > 1).
 - ``Accumulator`` is the progressive-rendering extension (the
   reference recomputes every frame from scratch; SURVEY.md §0 calls
-  accumulation out as a TPU-build extension).  It also provides the
+  accumulation out as an extension).  It also provides the
   checkpoint/resume story the reference lacks: ``save``/``load``
   snapshot the running radiance sum + spp count so a preempted
   progressive render resumes exactly.

@@ -1,4 +1,4 @@
-"""The wavefront bounce loop — the TPU analog of ray_gen.rgen:44-102.
+"""The wavefront bounce loop — the analog of ray_gen.rgen:44-102.
 
 One *sample* = up to NUM_BOUNCES segments per ray.  The bounce loop is
 Python-unrolled under jit (NUM_BOUNCES is a spec-constant analog), so
@@ -36,9 +36,10 @@ pcg2d stream, applied from ``rr_start_bounce`` on.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
-from vulkan_pathtracer_tpu.ops import rng
+from vulkan_pathtracer_tpu.ops import rng, traverse_gpu
 from vulkan_pathtracer_tpu.ops.brdf import (
     ShadingInfo,
     brdf,
@@ -64,528 +65,44 @@ ORIGIN_OFFSET = 1e-5        # ray_gen.rgen:86
 ROUGHNESS_FLOOR = 0.006     # ray_gen.rgen:84
 F0_DIELECTRIC = 0.02        # ray_gen.rgen:82
 
-# Trace-time override forcing ONE stack-kernel family for every phase.
-# Mixing the pair (primary) and quad (secondary) kernels inside a
-# single chunked lax.map body reproducibly faulted the TPU worker on a
-# 56k-tri scene (pair/pair, quad/quad, and the unchunked mixed program
-# all pass; a bare pair+quad lax.map minrepro also passes, so the fault
-# needs the full bounce loop around the kernels — see ROADMAP round-3
-# findings).  Chunked mixed-phase callers (render_rows) set this via
-# uniform_stack_kernel(); single-phase lax.map bodies (the progressive
-# batch) keep the per-phase tiers.
-_UNIFORM_STACK_KERNEL = None
-# True while tracing ANY chunked lax.map body (regardless of whether a
-# kernel family was forced) — the any-hit gate keys on this, not on
-# _UNIFORM_STACK_KERNEL, so VKPT_CHUNK_KERNEL=mixed cannot re-enable
-# mixed closest+any-hit kernels inside a chunk (the worker-fault
-# pattern VKPT_ANYHIT_CHUNKED=0 exists to prevent).
-_IN_CHUNKED_TRACE = False
-
-
-class uniform_stack_kernel:
-    """Context manager: force stack-kernel family ``kind`` ("oct" |
-    "quad" | "pair" | "packet" | "quad_hbm" | "oct_hbm") for both
-    phases while tracing.
-    ``None`` or "mixed" leaves the per-phase tiers in effect (but
-    still marks the trace as chunked for the any-hit gate)."""
-
-    def __init__(self, kind):
-        self.kind = None if kind in (None, "", "mixed") else kind
-
-    def __enter__(self):
-        global _UNIFORM_STACK_KERNEL, _IN_CHUNKED_TRACE
-        self._prev = _UNIFORM_STACK_KERNEL
-        self._prev_chunked = _IN_CHUNKED_TRACE
-        _IN_CHUNKED_TRACE = True
-        if self.kind is not None:
-            _UNIFORM_STACK_KERNEL = self.kind
-        return self
-
-    def __exit__(self, *exc):
-        global _UNIFORM_STACK_KERNEL, _IN_CHUNKED_TRACE
-        _UNIFORM_STACK_KERNEL = self._prev
-        _IN_CHUNKED_TRACE = self._prev_chunked
-        return False
-
-
-# Leaf-table size past which the joint/pooled chunked programs pin the
-# HBM-streamed-leaf kernel by default.  Every reproduced worker kill
-# (11 this round) ran a production-size scene (246k tris, ~9 MB leaf
-# table) with the leaf table in VMEM inside the long joint lax.map;
-# every survivor either streamed leaves from HBM or was a small scene
-# (Cornell/box-class joint programs ran across three rounds without a
-# fault).  2 MB is a conservative cut between those regimes.
-_JOINT_HBM_LEAF_BYTES = 2 * 1024 * 1024
-
-
-def _joint_kernel(scene):
-    """Stack-kernel family pinned over a joint/pooled chunked trace.
-
-    ``VKPT_JOINT_KERNEL`` overrides (the on-hardware bisect lever).
-    The default is measured policy (ROADMAP round-4 finding 6 +
-    plan5/plan6 bisect): joint chunked-lax.map programs whose stack
-    kernels keep the LEAF table in VMEM kill the shared TPU worker on
-    production-size scenes — single-family "quad" survived ~3x longer
-    than mixed but still died, while the HBM-streamed-leaf twin both
-    survives AND measures faster (2.696 vs 2.618 spp/s at 1080p
-    B=32).  Small scenes keep the per-phase tiers ("mixed")."""
-    import os
-
-    kind = os.environ.get("VKPT_JOINT_KERNEL")
-    if kind:
-        return kind
-    blocks = getattr(scene, "tri_blocks", None)
-    if blocks is None:
-        return "mixed"
-    from vulkan_pathtracer_tpu.ops.pallas_pair import (
-        _leaf_rows_per_block,
-        quad_hbm_fits,
-    )
-
-    # In-VMEM leaf-table footprint: 512 B per stored 128-lane row,
-    # times the split-row factor for leaf blocks > 14 tris (rpl is
-    # None when the stack kernels cannot run this leaf size at all —
-    # the dispatch then falls to XLA and no pin is needed).
-    rpl = _leaf_rows_per_block(blocks.shape[1] // 9)
-    if (rpl is not None
-            and blocks.shape[0] * 512 * rpl > _JOINT_HBM_LEAF_BYTES
-            and quad_hbm_fits(scene)):
-        return "quad_hbm"
-    return "mixed"
+def _use_kernel(scene, traversal: str) -> bool:
+    """``auto`` on a GPU runs the per-ray Pallas kernel
+    (ops/traverse_gpu.py), measured far faster there than the XLA loop
+    (PERF.md); everywhere else ``auto`` and ``bvh`` run the XLA loop,
+    which stays the plain reference.  Never picks interpret mode."""
+    return (traversal == "auto" and scene.has_bvh
+            and jax.default_backend() == "gpu")
 
 
 def _closest_hit(scene, origin, direction, active, traversal: str,
-                 seed=None, phase: str = "primary"):
-    if getattr(scene, "instanced", False):
-        # Two-level scenes: packed leaf values need the instanced leaf
-        # decode.  The packet kernel carries it too now (object-space
-        # transform per leaf visit, same contract as the dense kernel)
-        # and is the faster dispatch at leaf-14 blocks; dense remains
-        # the VMEM-fit fallback, XLA traversal after that.
-        import os as _os
-
-        import jax
-
-        from vulkan_pathtracer_tpu.ops.pallas_traverse import (
-            dense_fits_vmem,
-            dense_hbm_fits,
-            fits_vmem,
-            pallas_closest_hit,
-            pallas_dense_closest_hit,
-        )
-
-        from vulkan_pathtracer_tpu.ops.pallas_pair import (
-            pair_fits_vmem,
-            pallas_pair_closest_hit,
-        )
-
-        on_tpu = jax.default_backend() == "tpu"
-        run_pallas = traversal == "pallas" or (
-            traversal == "auto" and on_tpu)  # auto off-TPU -> XLA path
-        if run_pallas and _os.environ.get("VKPT_PAIR", "1") == "1" \
-                and pair_fits_vmem(scene):
-            pk = int(_os.environ.get(
-                "VKPT_PAIR_PACKET_SECONDARY"
-                if phase == "secondary" else "VKPT_PAIR_PACKET_PRIMARY",
-                3072 if phase == "secondary" else 4096))
-            return pallas_pair_closest_hit(
-                scene, origin, direction, active,
-                interpret=not on_tpu, seed=seed, packet=pk,
-            )
-        if run_pallas and fits_vmem(scene):
-            pk_env = ("VKPT_PACKET_SECONDARY" if phase == "secondary"
-                      else "VKPT_PACKET_PRIMARY")
-            pk = int(_os.environ.get(
-                pk_env, 3072 if phase == "secondary" else 4096))
-            return pallas_closest_hit(
-                scene, origin, direction, active,
-                interpret=not on_tpu, seed=seed, packet=pk,
-            )
-        if run_pallas and dense_fits_vmem(scene):
-            return pallas_dense_closest_hit(
-                scene, origin, direction, active,
-                interpret=not on_tpu, seed=seed,
-            )
-        if run_pallas and dense_hbm_fits(scene):
-            return pallas_dense_closest_hit(
-                scene, origin, direction, active,
-                interpret=not on_tpu, seed=seed, hbm_leaves=True,
-            )
-        return bvh_closest_hit(scene, origin, direction, active,
-                               seed=seed)
-    if traversal == "brute" or (traversal == "auto" and not scene.has_bvh):
+                 seed=None):
+    if _use_kernel(scene, traversal):
+        return traverse_gpu.gpu_closest_hit(scene, origin, direction,
+                                            active, seed=seed)
+    if not getattr(scene, "instanced", False) and (
+            traversal == "brute"
+            or (traversal == "auto" and not scene.has_bvh)):
         return brute_force_closest_hit(scene, origin, direction, active)
-    if traversal in ("pallas", "pallas8", "pallas_packet", "auto"):
-        import jax
-
-        from vulkan_pathtracer_tpu.ops.pallas_traverse import (
-            dense_fits_vmem,
-            fits_vmem,
-            pallas_closest_hit,
-            pallas_dense_closest_hit,
-            pallas_wide_closest_hit,
-            wide_fits_vmem,
-        )
-
-        on_tpu = jax.default_backend() == "tpu"
-        wide_ok = getattr(scene, "bvh_wide_nodes", None) is not None
-        # pallas8 is opt-in only: measured ~2x slower than the binary
-        # packet kernel (per-visit vector work grows 8x while visits
-        # drop ~3x) — see ROADMAP.md.
-        if traversal == "pallas8" and wide_ok and wide_fits_vmem(scene):
-            return pallas_wide_closest_hit(
-                scene, origin, direction, active, interpret=not on_tpu,
-                seed=seed,
-            )
-        # pallas_packet is the round-1 binary packet kernel (one node
-        # per visit), kept for A/B comparisons.
-        if traversal == "pallas_packet" and fits_vmem(scene):
-            return pallas_closest_hit(
-                scene, origin, direction, active, interpret=not on_tpu,
-                seed=seed,
-            )
-        # Default fast path: the one-node-per-visit packet kernel for
-        # BOTH phases, with phase-tuned packet sizes.  With leaf-14
-        # blocks it beats the dense-row kernel on tile-ordered
-        # primaries too (89.5 vs 199.2 ms on the 1080p atrium — the
-        # dense kernel's full-width MT over 3 on-chain leaf slots per
-        # row scales with leaf size; the packet kernel's per-leaf MT
-        # does not revisit off-chain nodes).  The dense kernel is the
-        # VMEM-fit fallback tier (including for instanced scenes — the
-        # packet kernel gained instanced leaf decode and is preferred
-        # there too).
-        if traversal in ("pallas", "pair") or (
-            traversal == "auto" and on_tpu
-        ):
-            import os
-
-            from vulkan_pathtracer_tpu.ops.pallas_pair import (
-                oct_fits_vmem,
-                pair_fits_vmem,
-                pallas_oct_closest_hit,
-                pallas_pair_closest_hit,
-                pallas_quad_closest_hit,
-                quad_fits_vmem,
-            )
-
-            # Stack kernels beat the preorder packet kernel on atrium
-            # (checksum-identical A/Bs, leaf 14): SECONDARIES 872 ms
-            # packet -> 668 pair -> 554 QUAD pk2048 (1.58x);
-            # PRIMARIES 85.7 packet -> 61.5 PAIR pk4096 (1.39x; quad
-            # 63.4-77.7 — 4 sibling boxes waste work on coherent
-            # packets).  Shared-stack dynamic near-first replaces the
-            # octant orders and amortizes the per-visit serial chain
-            # over sibling boxes with pipelined min-reductions.
-            # Per-phase tier: secondary=quad, primary=pair; VKPT_PAIR=0
-            # opts out, VKPT_KERNEL_{PRIMARY,SECONDARY}=quad|pair|packet
-            # overrides.
-            use_stack = (os.environ.get("VKPT_PAIR", "1") == "1"
-                         or traversal == "pair")
-            if phase == "secondary":
-                kern = os.environ.get("VKPT_KERNEL_SECONDARY", "quad")
-                pk_quad = int(os.environ.get(
-                    "VKPT_QUAD_PACKET_SECONDARY", 2048))
-                pk_pair = int(os.environ.get(
-                    "VKPT_PAIR_PACKET_SECONDARY", 3072))
-                pk_oct = int(os.environ.get(
-                    "VKPT_OCT_PACKET_SECONDARY", 2048))
-            else:
-                # Default primary tier is leaf-keyed (plan15, real
-                # TPU, 2.07M tile-ordered primaries on the 246k
-                # atrium): at leaf 14 pair pk4096 wins (61.5 ms vs
-                # quad 63.4-77.7, round-3); at the leaf-28 production
-                # default quad pk4096 wins (73.2 ms vs pair 83.5 =
-                # 1.14x) — the doubled per-leaf scalar chain hurts
-                # the 2-wide kernel more than the 4-wide one.
-                default_prim = ("pair" if getattr(
-                    scene, "max_leaf_size", 14) <= 14 else "quad")
-                kern = os.environ.get("VKPT_KERNEL_PRIMARY",
-                                      default_prim)
-                pk_quad = int(os.environ.get(
-                    "VKPT_QUAD_PACKET_PRIMARY",
-                    3072 if default_prim == "pair" else 4096))
-                pk_pair = int(os.environ.get(
-                    "VKPT_PAIR_PACKET_PRIMARY", 4096))
-                pk_oct = int(os.environ.get(
-                    "VKPT_OCT_PACKET_PRIMARY", 2048))
-            if _UNIFORM_STACK_KERNEL is not None:
-                kern = _UNIFORM_STACK_KERNEL
-            # VMEM-overflow fallback order (measured at 2.02M tris,
-            # full 1080p launch): past the in-VMEM quad ceiling,
-            # quad+hbm-leaves (leaf table streamed from HBM, node
-            # table resident) measured 24.1 Mrays/s primaries and is
-            # preferred over the in-VMEM oct tier, which is slower
-            # (~18-21) AND faulted the TPU worker on >512-group
-            # launches at that table size.  oct+hbm is the deep
-            # fallback for scenes whose QUAD node table alone
-            # overflows (~8M+ tris).  In-VMEM oct stays reachable via
-            # VKPT_KERNEL_*=oct.
-            if phase == "secondary":
-                tiers = ["quad", "quad_hbm", "oct", "oct_hbm", "pair"]
-            else:
-                tiers = ["pair", "quad", "quad_hbm", "oct", "oct_hbm"]
-            if kern in ("quad_hbm", "oct_hbm", "frontier_hbm",
-                        "vgate_hbm"):
-                # Explicit HBM-streamed-leaf tier (e.g.
-                # VKPT_JOINT_KERNEL=quad_hbm): do NOT fall back to the
-                # in-VMEM twin first — the override exists to keep the
-                # leaf table OUT of VMEM (worker-kill bisect, ROADMAP
-                # round-4 finding 6).
-                tiers = [kern] + [k for k in tiers if k != kern]
-            elif kern in ("oct", "quad", "pair", "frontier",
-                          "vgate"):
-                pref = [kern, kern + "_hbm"]
-                tiers = pref + [k for k in tiers if k not in pref]
-            if use_stack and kern != "packet":
-                from vulkan_pathtracer_tpu.ops.pallas_frontier import (
-                    frontier_fits_vmem,
-                    frontier_hbm_fits,
-                    pallas_frontier_closest_hit,
-                )
-                from vulkan_pathtracer_tpu.ops.pallas_pair import (
-                    oct_hbm_fits,
-                    quad_hbm_fits,
-                )
-
-                pk_frontier = int(os.environ.get(
-                    "VKPT_FRONTIER_PACKET", 2048))
-                calls = {
-                    # Opt-in (VKPT_KERNEL_*=frontier) until measured:
-                    # the 16-wide MXU node-phase kernel.
-                    "frontier": (frontier_fits_vmem,
-                                 pallas_frontier_closest_hit,
-                                 pk_frontier, False),
-                    "frontier_hbm": (frontier_hbm_fits,
-                                     pallas_frontier_closest_hit,
-                                     pk_frontier, True),
-                    "oct": (oct_fits_vmem, pallas_oct_closest_hit,
-                            pk_oct, False),
-                    "quad": (quad_fits_vmem, pallas_quad_closest_hit,
-                             pk_quad, False),
-                    "pair": (pair_fits_vmem, pallas_pair_closest_hit,
-                             pk_pair, False),
-                    "quad_hbm": (quad_hbm_fits,
-                                 pallas_quad_closest_hit, pk_quad,
-                                 True),
-                    "oct_hbm": (oct_hbm_fits, pallas_oct_closest_hit,
-                                pk_oct, True),
-                }
-                # Round-5 vreg-gated leaf-MT tiers (exact; packet must
-                # be a 1024 multiple — pallas_quad_closest_hit falls
-                # back to ungated otherwise).
-                pk_vg = int(os.environ.get("VKPT_VGATE_PACKET", 4096))
-                calls["vgate"] = (quad_fits_vmem,
-                                  pallas_quad_closest_hit, pk_vg,
-                                  False)
-                calls["vgate_hbm"] = (quad_hbm_fits,
-                                      pallas_quad_closest_hit, pk_vg,
-                                      True)
-                for k in tiers:
-                    if k not in calls:
-                        continue
-                    fits, call, pk, hbm = calls[k]
-                    if fits(scene):
-                        kw = {"hbm_leaves": True} if hbm else {}
-                        if k in ("vgate", "vgate_hbm"):
-                            kw["gated"] = True
-                        return call(
-                            scene, origin, direction, active,
-                            interpret=not on_tpu, seed=seed, packet=pk,
-                            **kw,
-                        )
-            if fits_vmem(scene):
-                if phase == "secondary":
-                    # 6d endpoint-pair sort key (L=0.5*diag) + leaf-14
-                    # + pk3072 plain is the measured best (830 ms on
-                    # atrium secondaries vs 1123 at pk4096/leaf8).
-                    # Under VKPT_SORT_KEY=octant, pk8192 + group_mt=1
-                    # was best instead; retune if the key changes.
-                    pk = int(os.environ.get(
-                        "VKPT_PACKET_SECONDARY", 3072))
-                    gmt = int(os.environ.get(
-                        "VKPT_GROUP_MT_SECONDARY", "0"))
-                else:
-                    pk = int(os.environ.get(
-                        "VKPT_PACKET_PRIMARY", 4096))
-                    gmt = int(os.environ.get(
-                        "VKPT_GROUP_MT_PRIMARY", "0"))
-                return pallas_closest_hit(
-                    scene, origin, direction, active,
-                    interpret=not on_tpu, seed=seed, packet=pk,
-                    group_mt=gmt,
-                )
-            if dense_fits_vmem(scene):
-                return pallas_dense_closest_hit(
-                    scene, origin, direction, active,
-                    interpret=not on_tpu, seed=seed,
-                )
-            from vulkan_pathtracer_tpu.ops.pallas_traverse import (
-                dense_hbm_fits,
-            )
-
-            if dense_hbm_fits(scene):
-                # Beyond the VMEM leaf-table ceiling: HBM-streamed
-                # leaves keep the fast kernel running (no XLA cliff).
-                return pallas_dense_closest_hit(
-                    scene, origin, direction, active,
-                    interpret=not on_tpu, seed=seed, hbm_leaves=True,
-                )
-    _warn_xla_fallback(scene)
     return bvh_closest_hit(scene, origin, direction, active, seed=seed)
 
 
-_XLA_FALLBACK_WARNED = set()
-
-
-def _warn_xla_fallback(scene) -> None:
-    """One-time stderr note when an EXPLICIT kernel override lands on
-    the XLA traversal anyway — e.g. VKPT_KERNEL_SECONDARY=packet at
-    the leaf-28 default (the legacy packet/dense tiers only run
-    one-row leaf blocks <= 14 tris; the stack kernels carry the
-    split-row layout).  Silent at defaults: the auto fallback chain
-    choosing XLA is normal for tiny/degenerate scenes."""
-    import os
-    import sys
-
-    sel = {k: os.environ[k] for k in
-           ("VKPT_KERNEL_PRIMARY", "VKPT_KERNEL_SECONDARY",
-            "VKPT_CHUNK_KERNEL", "VKPT_JOINT_KERNEL")
-           if os.environ.get(k)}
-    if not sel or not getattr(scene, "has_bvh", False):
-        return
-    key = (tuple(sorted(sel.items())),
-           int(getattr(scene, "max_leaf_size", 0)))
-    if key in _XLA_FALLBACK_WARNED:
-        return
-    _XLA_FALLBACK_WARNED.add(key)
-    print(f"vkpt: kernel override {sel} fell through every pallas "
-          f"tier to the XLA traversal (leaf "
-          f"{getattr(scene, 'max_leaf_size', '?')} rows unsupported "
-          "by that tier, or its VMEM gate rejected the scene)",
-          file=sys.stderr)
-
-
 def _anyhit_enabled(scene) -> bool:
-    """Whether the last bounce may use the ANY-HIT kernel: the scene
+    """Whether the last bounce may use an occlusion query: the scene
     must be statically emissive-free (last-bounce radiance is then
     only the sky/miss decision — emissive x atten is identically zero
-    for hit lanes), gated by VKPT_ANYHIT (default on).  Inside a
-    chunked trace (uniform_stack_kernel active) the chunk body would
-    mix the closest-hit and any-hit kernels in one lax.map — the
-    pattern that faulted the TPU worker for pair+quad — so it is
-    separately gated by VKPT_ANYHIT_CHUNKED."""
-    import os
-
-    if os.environ.get("VKPT_ANYHIT", "1") != "1":
-        return False
-    if not getattr(scene, "emissive_free", False):
-        return False
-    if _IN_CHUNKED_TRACE:
-        gate = os.environ.get("VKPT_ANYHIT_CHUNKED")
-        if gate is not None:
-            return gate == "1"
-        # Measured default (plan8, real TPU): under an HBM-leaf
-        # kernel pin the joint chunk bodies dispatch the HBM any-hit
-        # kernel (see _any_hit), and that program is fault-free AND
-        # faster — 3.024 vs 2.77 spp/s at 1080p B=32 leaf-28.  Any
-        # OTHER chunked shape would mix in-VMEM closest+any-hit
-        # kernels in one lax.map — the measured worker-kill pattern —
-        # so it stays off unless VKPT_ANYHIT_CHUNKED=1 forces it.
-        return _UNIFORM_STACK_KERNEL in ("quad_hbm", "oct_hbm",
-                                         "vgate_hbm")
-    return True
+    for hit lanes)."""
+    return bool(getattr(scene, "emissive_free", False))
 
 
 def _any_hit(scene, origin, direction, active, traversal: str):
     """Occlusion query: (N,) bool, True exactly where _closest_hit
-    would report a hit (t < MISS_T).  On TPU (or traversal="pallas")
-    flat scenes dispatch the quad-table ANY-HIT stack kernel —
-    resolved lanes stop driving descent and packets terminate when
-    all lanes resolve, so enclosed-interior last bounces cost a
-    fraction of a closest-hit pass (the analog of
-    gl_RayFlagsTerminateOnFirstHitEXT).  Instanced scenes and
-    non-Pallas paths fall back to closest-hit + t comparison (exact,
-    no speedup)."""
-    import os as _os
-
-    import jax
-
-    on_tpu = jax.default_backend() == "tpu"
-    run_pallas = traversal in ("pallas", "pair") or (
-        traversal == "auto" and on_tpu and scene.has_bvh)
-    if run_pallas and _os.environ.get("VKPT_PAIR", "1") == "1":
-        from vulkan_pathtracer_tpu.ops.pallas_pair import (
-            pair_fits_vmem,
-            pallas_pair_any_hit,
-            pallas_quad_any_hit,
-            quad_fits_vmem,
-            quad_hbm_fits,
-        )
-
-        pk = int(_os.environ.get("VKPT_ANYHIT_PACKET", 2048))
-        # Honor a pinned HBM-leaf family (joint chunked traces,
-        # _joint_kernel): every in-VMEM any-hit twin is exactly the
-        # worker-kill shape the pin exists to avoid (plan6 bisect),
-        # so under the pin dispatch ONLY the HBM any-hit or fall to
-        # closest-hit (which honors the pin itself).
-        pin_hbm = _UNIFORM_STACK_KERNEL in ("quad_hbm", "oct_hbm",
-                                            "vgate_hbm")
-        if not getattr(scene, "instanced", False):
-            if pin_hbm:
-                # Only the quad_hbm pin has a same-family any-hit
-                # kernel; under oct_hbm dispatching quad any-hit
-                # would MIX families in one chunked body (the
-                # worker-kill shape) — fall to closest-hit instead,
-                # which honors the pin itself.
-                if (_UNIFORM_STACK_KERNEL in ("quad_hbm",
-                                              "vgate_hbm")
-                        and quad_hbm_fits(scene, packet=pk)):
-                    # Under the vgate pin the any-hit twin is gated
-                    # too — one kernel structure per chunked body.
-                    return pallas_quad_any_hit(
-                        scene, origin, direction, active,
-                        interpret=not on_tpu, packet=pk,
-                        hbm_leaves=True,
-                        gated=_UNIFORM_STACK_KERNEL == "vgate_hbm")
-            elif _os.environ.get("VKPT_ANYHIT_KERNEL") == "frontier":
-                # Opt-in 16-wide MXU node-phase any-hit (pending TPU
-                # measurement, like VKPT_KERNEL_*=frontier).
-                from vulkan_pathtracer_tpu.ops.pallas_frontier import (
-                    frontier_fits_vmem,
-                    frontier_hbm_fits,
-                    pallas_frontier_any_hit,
-                )
-
-                fpk = int(_os.environ.get("VKPT_FRONTIER_PACKET",
-                                          2048))
-                if frontier_fits_vmem(scene, packet=fpk):
-                    return pallas_frontier_any_hit(
-                        scene, origin, direction, active,
-                        interpret=not on_tpu, packet=fpk)
-                if frontier_hbm_fits(scene, packet=fpk):
-                    return pallas_frontier_any_hit(
-                        scene, origin, direction, active,
-                        interpret=not on_tpu, packet=fpk,
-                        hbm_leaves=True)
-            if not pin_hbm and quad_fits_vmem(scene, packet=pk):
-                return pallas_quad_any_hit(scene, origin, direction,
-                                           active,
-                                           interpret=not on_tpu,
-                                           packet=pk)
-            if not pin_hbm and quad_hbm_fits(scene, packet=pk):
-                return pallas_quad_any_hit(scene, origin, direction,
-                                           active,
-                                           interpret=not on_tpu,
-                                           packet=pk, hbm_leaves=True)
-        if not pin_hbm and pair_fits_vmem(scene, packet=pk):
-            # Pair tier: carries the instanced object-space leaf
-            # decode (two-level scenes) and serves flat scenes whose
-            # quad table is absent.
-            return pallas_pair_any_hit(scene, origin, direction,
-                                       active, interpret=not on_tpu,
-                                       packet=pk)
-    hit = _closest_hit(scene, origin, direction, active, traversal,
-                       phase="secondary")
+    would report a hit (t < MISS_T).  On the GPU kernel path each lane
+    stops at its first accepted triangle (the analog of
+    gl_RayFlagsTerminateOnFirstHitEXT); elsewhere it is closest-hit
+    plus a t comparison (exact, no speedup)."""
+    if _use_kernel(scene, traversal):
+        return traverse_gpu.gpu_any_hit(scene, origin, direction, active)
+    hit = _closest_hit(scene, origin, direction, active, traversal)
     h = hit.t < MISS_T
     if active is not None:
         h = h & active
@@ -594,8 +111,7 @@ def _any_hit(scene, origin, direction, active, traversal: str):
 
 def _any_hit_sorted(scene, origin, direction, active, traversal: str):
     """Sorted-dispatch any-hit: one payload row gather in, one column
-    gather back for the single hit bit (the bounce key keeps packets
-    coherent so they resolve and terminate early together)."""
+    gather back for the single hit bit."""
     key = _bounce_sort_key(
         scene, origin, direction,
         jnp.ones(origin.shape[0], bool) if active is None else active,
@@ -633,15 +149,12 @@ from vulkan_pathtracer_tpu.ops.sort import (  # noqa: E402
 
 
 def _closest_hit_sorted(scene, origin, direction, active, traversal: str,
-                        seed=None, phase: str = "secondary"):
+                        seed=None):
     """Sort rays by the bounce key (_bounce_sort_key: 6d endpoint-pair
-    Morton by default) before traversal so packets stay coherent (2-3x
-    on bounce rays under the Pallas packet kernel; dead rays cluster at
-    the end and their packets terminate immediately), then scatter
-    results back to pixel order.  Per-ray results are identical to the
-    unsorted dispatch."""
-    import jax
-
+    Morton by default) before traversal so neighbouring rays take
+    similar paths through the tree (dead rays cluster at the end), then
+    scatter results back to pixel order.  Per-ray results are identical
+    to the unsorted dispatch."""
     key = _bounce_sort_key(
         scene, origin, direction,
         jnp.ones(origin.shape[0], bool) if active is None else active,
@@ -651,14 +164,9 @@ def _closest_hit_sorted(scene, origin, direction, active, traversal: str,
     inv = jnp.zeros_like(order).at[order].set(
         jnp.arange(order.shape[0], dtype=order.dtype)
     )
-    # Apply the permutation with ONE row gather each way.  Separate
-    # per-column gathers are latency-bound at ~38 ms per CALL at 2M
-    # lanes almost independent of width (glue_times harness: 7 column
-    # gathers = 269 ms of a 294 ms sort pipeline; the (N,16) row
-    # gather costs 74 ms total, ops/sort.py cost table) — packing
-    # o/d/active(/seed) into one payload row and the hit into a
-    # (N,4) row cuts the permutation cost ~3x.  Bit-exact: gathers
-    # are exact, int channels ride as f32 bitcasts.
+    # Apply the permutation with ONE row gather each way: o/d/active
+    # (/seed) ride in one payload row and the hit in one (N, 4) row.
+    # Bit-exact: gathers are exact, int channels ride as f32 bitcasts.
     cols = [origin, direction]
     if active is not None:
         cols.append(active.astype(jnp.float32)[:, None])
@@ -683,8 +191,7 @@ def _closest_hit_sorted(scene, origin, direction, active, traversal: str,
                                              jnp.int32),
             u=payload[:, c + 2], v=payload[:, c + 3],
         )
-    hit = _closest_hit(scene, o_s, d_s, act_s, traversal, seed=seed_s,
-                       phase=phase)
+    hit = _closest_hit(scene, o_s, d_s, act_s, traversal, seed=seed_s)
     hp = jnp.take(
         jnp.stack(
             [hit.t,
@@ -741,7 +248,6 @@ def trace_sample(scene, origin, direction, seed_x, seed_y, *,
             prev_block = jnp.maximum(prev_hit.tri, 0) // scene.max_leaf_size
             seed = leaf_seed_hit(scene, origin, direction, prev_block,
                                  active=alive)
-        phase = "primary" if j == 0 else "secondary"
         if j == num_bounces - 1 and _anyhit_enabled(scene):
             # Last bounce of an emissive-free scene: radiance needs
             # only the sky/miss decision — ANY-HIT traversal (values
@@ -761,10 +267,10 @@ def trace_sample(scene, origin, direction, seed_x, seed_y, *,
             continue
         if sort_secondary and j > 0:
             hit = _closest_hit_sorted(scene, origin, direction, alive,
-                                      traversal, seed=seed, phase=phase)
+                                      traversal, seed=seed)
         else:
             hit = _closest_hit(scene, origin, direction, alive, traversal,
-                               seed=seed, phase=phase)
+                               seed=seed)
         prev_hit = hit
         missed = alive & (hit.t >= MISS_T)
         did_hit = alive & ~missed
@@ -856,17 +362,12 @@ def _bounce_sort_key(scene, origin, direction, alive):
     """Bounce-ray sort key; dead lanes to the end.  Two layouts:
 
     - "6d" (default): interleaved origin/endpoint Morton, 5 bits per
-      axis each, endpoint = origin + 0.3*diag*direction.  Binning by
-      BOTH ends of the working segment beat octant+origin-Morton by
-      26% on atrium secondaries (experiments/leaf_gate_ab VARIANTS=key:
-      1080 ms vs 1361 ms at pk8192+group-MT; L=0.5*diag another +10%,
-      and with leaf blocks of 14 the best measured stack is 830 ms at
-      pk3072 = 1.8x over the round-2 octant default) — packets share
-      cell AND direction corridor.  Packets may mix direction octants
-      (the kernel stages the majority octant's linearization; ordering
-      affects only efficiency, never results).
+      axis each, endpoint = origin + 0.5*diag*direction.  Binning by
+      BOTH ends of the working segment groups rays that share a cell
+      AND a direction corridor.  Ordering affects only efficiency,
+      never results.
     - "octant" (VKPT_SORT_KEY=octant): direction octant (3 bits) |
-      origin Morton — the round-1/2 key, kept for A/B.
+      origin Morton.
     """
     import os
 
@@ -987,8 +488,6 @@ WAVEFRONT_CHUNK = 1 << 20  # rays per chunked dispatch (bounds HBM temps)
 
 
 def _pack_state(o, d, atten, color, sx, sy, alive, lane):
-    import jax
-
     return jnp.concatenate(
         [
             o, d, atten, color,
@@ -1002,8 +501,6 @@ def _pack_state(o, d, atten, color, sx, sy, alive, lane):
 
 
 def _unpack_state(st):
-    import jax
-
     return (
         st[:, _ST_O], st[:, _ST_D], st[:, _ST_ATT], st[:, _ST_COL],
         jax.lax.bitcast_convert_type(st[:, _ST_SX], jnp.uint32),
@@ -1025,11 +522,8 @@ def trace_wavefront_pooled(scene, origin, direction, seed_x, seed_y, *,
     Where ``trace_progressive_batch`` exploits a static camera (one
     shared primary hit), this path keeps every frame's own primary
     rays but merges ALL frames into one packed state matrix so each
-    bounce's global (octant, origin-Morton) sort draws traversal
-    packets from an F-times denser key space — union-visit sharing in
-    the packet kernels improves with ray density (ROADMAP round-2
-    findings), which is exactly what enclosed-interior secondary
-    bounces are bound by.
+    bounce's global sort orders rays drawn from an F-times denser key
+    space.
 
     Exactness: per-(pixel, frame) pcg2d streams are seeded
     independently (frame_count seeds the stream, ray_gen.rgen:41), the
@@ -1044,8 +538,6 @@ def trace_wavefront_pooled(scene, origin, direction, seed_x, seed_y, *,
     concatenated, any coherent order); ``seed_x``/``seed_y``: (M,).
     Returns (color (M, 3) in input lane order, physical rays traced).
     """
-    import jax
-
     m = origin.shape[0]
     if chunk is None:
         chunk = WAVEFRONT_CHUNK
@@ -1065,7 +557,7 @@ def trace_wavefront_pooled(scene, origin, direction, seed_x, seed_y, *,
     n_chunks = state.shape[0] // chunk
     rays_traced = jnp.float32(0.0)
 
-    def chunk_fn(last: bool, rr: bool, phase: str):
+    def chunk_fn(last: bool, rr: bool):
         anyhit = last and _anyhit_enabled(scene)
 
         def fn(st):
@@ -1075,17 +567,14 @@ def trace_wavefront_pooled(scene, origin, direction, seed_x, seed_y, *,
             def work(args):
                 o, d, atten, color, csx, csy, c_alive = args
                 if anyhit:
-                    # Emissive-free last bounce: sky/miss only (the
-                    # state is already globally key-sorted, so chunk
-                    # packets are coherent and resolve early).
+                    # Emissive-free last bounce: sky/miss only.
                     hm = _any_hit(scene, o, d, c_alive, traversal)
                     missed = c_alive & ~hm
                     color2 = color + jnp.where(
                         missed[:, None], atten * sky_color(d), 0.0)
                     return (o, d, atten, color2, csx, csy,
                             jnp.zeros_like(c_alive))
-                hit = _closest_hit(scene, o, d, c_alive, traversal,
-                                   phase=phase)
+                hit = _closest_hit(scene, o, d, c_alive, traversal)
                 return _shade_and_extend(
                     scene, hit, o, d, atten, color, csx, csy, c_alive,
                     last=last, rr=rr,
@@ -1106,33 +595,18 @@ def trace_wavefront_pooled(scene, origin, direction, seed_x, seed_y, *,
 
         return fn
 
-    # The bounce loop builds chunked lax.map bodies, so it must be
-    # marked as a chunked trace: the round-3/4 measured worker-fault
-    # family lives in chunked programs (mixed stack-kernel bodies, and
-    # — measured round 4, 5 reproductions incl. cache-warm on a fresh
-    # worker — the exact ANY-HIT kernel inside joint chunk bodies,
-    # while the same program under VKPT_MT=mxu survives).  This gate
-    # previously only fired for render_rows (uniform_stack_kernel),
-    # silently leaving the joint/pooled paths exposed; with it,
-    # _anyhit_enabled keys off VKPT_ANYHIT_CHUNKED (default off) here
-    # too.  The pinned family comes from _joint_kernel (quad_hbm on
-    # production-size scenes — the measured survivor structure;
-    # VKPT_JOINT_KERNEL overrides).
-    with uniform_stack_kernel(_joint_kernel(scene)):
-        for j in range(num_bounces):
-            if sort_secondary and j > 0:
-                o, d, _, _, _, _, alive, _ = _unpack_state(state)
-                key = _bounce_sort_key(scene, o, d, alive)
-                state = _permute_state(state, key, _sort_chunk())
-            last = j == num_bounces - 1
-            rr = russian_roulette and (j + 1) >= rr_start_bounce
-            phase = "primary" if j == 0 else "secondary"
-            state, counts = jax.lax.map(
-                chunk_fn(last, rr, phase),
-                state.reshape(n_chunks, chunk, 16)
-            )
-            state = state.reshape(-1, 16)
-            rays_traced = rays_traced + jnp.sum(counts)
+    for j in range(num_bounces):
+        if sort_secondary and j > 0:
+            o, d, _, _, _, _, alive, _ = _unpack_state(state)
+            key = _bounce_sort_key(scene, o, d, alive)
+            state = _permute_state(state, key, _sort_chunk())
+        last = j == num_bounces - 1
+        rr = russian_roulette and (j + 1) >= rr_start_bounce
+        state, counts = jax.lax.map(
+            chunk_fn(last, rr), state.reshape(n_chunks, chunk, 16)
+        )
+        state = state.reshape(-1, 16)
+        rays_traced = rays_traced + jnp.sum(counts)
 
     _, _, _, color, _, _, _, out_lane = _unpack_state(state)
     # Pad lanes carry lane id 0 but only ever zero color (alive=False
@@ -1159,10 +633,8 @@ def trace_progressive_batch(scene, origin, direction, seed_x, seed_y, *,
        frames (frame_count only seeds the RNG, ray_gen.rgen:41) —
        traced and shaded ONCE per batch.
     2. All frames' bounce-j rays live in one packed (batch*N, 16)
-       state matrix, globally re-sorted per bounce by (octant, origin
-       Morton) with dead rays at the end: packets drawn from a
-       batch-times denser key space stay far more coherent, and
-       union-visit sharing saturates (ROADMAP round-2 findings).
+       state matrix, globally re-sorted per bounce by the bounce key
+       with dead rays at the end.
     3. The sorted wavefront is traversed+shaded in fixed-size chunks
        under lax.map (bounds peak HBM); chunks whose rays are all dead
        skip traversal and shading entirely via lax.cond — true
@@ -1175,16 +647,14 @@ def trace_progressive_batch(scene, origin, direction, seed_x, seed_y, *,
     counts are exact).  Chunked dispatch (VKPT_CHUNK) is allclose-
     not-bitexact vs the unchunked program: XLA reassociates the
     shading arithmetic differently across program shapes (~2^-18
-    diffs on a few permille of lanes; ROADMAP finding 7 — tests
-    assert tight allclose + exact ray counts).  Requires 1 spp
+    diffs on a few permille of lanes — tests assert tight allclose +
+    exact ray counts).  Requires 1 spp
     (cross-SAMPLE batching would break the per-pixel stream's
     sequential draw order).
 
     ``seed_x/seed_y``: (batch, N) uint32.  Returns
     (color_sum (N, 3) summed over frames, physical rays traced).
     """
-    import jax
-
     n = origin.shape[0]
     b = batch
     m = b * n
@@ -1192,13 +662,7 @@ def trace_progressive_batch(scene, origin, direction, seed_x, seed_y, *,
     rays_traced = jnp.float32(n)
 
     # ---- bounce 0: shared across frames ----
-    # The shared primary is pinned to the same stack-kernel family as
-    # the chunk bodies (the whole joint program then contains ONE
-    # pallas kernel family — the strongest-safe shape for the
-    # chunked-program worker-fault class); on small scenes
-    # _joint_kernel returns "mixed" and the per-phase pair tier stays.
-    with uniform_stack_kernel(_joint_kernel(scene)):
-        hit0 = _closest_hit(scene, origin, direction, None, traversal)
+    hit0 = _closest_hit(scene, origin, direction, None, traversal)
     missed0 = hit0.t >= MISS_T
     did0 = ~missed0
     tri0 = get_triangle_data(scene, hit0)
@@ -1294,8 +758,7 @@ def trace_progressive_batch(scene, origin, direction, seed_x, seed_y, *,
                         missed[:, None], atten * sky_color(d), 0.0)
                     return (o, d, atten, col2, csx, csy,
                             jnp.zeros_like(c_alive))
-                hit = _closest_hit(scene, o, d, c_alive, traversal,
-                                   phase="secondary")
+                hit = _closest_hit(scene, o, d, c_alive, traversal)
                 o2, d2, att2, col2, sx2, sy2, al2 = _shade_and_extend(
                     scene, hit, o, d, atten, color, csx, csy, c_alive,
                     last=last, rr=rr,
@@ -1317,36 +780,18 @@ def trace_progressive_batch(scene, origin, direction, seed_x, seed_y, *,
 
         return fn
 
-    import os as _os
-
-    # Chunked-trace marking + per-family forcing: see the same block
-    # in trace_wavefront_pooled.  Without it the exact any-hit kernel
-    # entered these chunk bodies ungated — the program that killed the
-    # TPU worker 5x (round-4 finding 6; the round-3-end 19:38/19:47
-    # "outage onset" crashes were the same program).
-    with uniform_stack_kernel(_joint_kernel(scene)):
-        for j in range(1, num_bounces):
-            last = j == num_bounces - 1
-            # The global re-sort costs a 66M-lane argsort + (M,16) row
-            # gather per bounce; on the ANY-HIT last bounce
-            # (emissive-free scenes) packets resolve in a handful of
-            # visits, so the previous bounce's ordering (origins =
-            # previous endpoints) may already be coherent enough —
-            # VKPT_ANYHIT_SORT=0 skips the sort there
-            # (scheduling-only, results exact).
-            sort_this = sort_secondary and not (
-                last and _anyhit_enabled(scene)
-                and _os.environ.get("VKPT_ANYHIT_SORT", "1") != "1")
-            if sort_this:
-                o, d, _, _, _, _, alive, _ = _unpack_state(state)
-                key = _bounce_sort_key(scene, o, d, alive)
-                state = _permute_state(state, key, _sort_chunk())
-            rr = russian_roulette and (j + 1) >= rr_start_bounce
-            state, counts = jax.lax.map(
-                chunk_fn(last, rr), state.reshape(n_chunks, chunk, 16)
-            )
-            state = state.reshape(-1, 16)
-            rays_traced = rays_traced + jnp.sum(counts)
+    for j in range(1, num_bounces):
+        last = j == num_bounces - 1
+        if sort_secondary:
+            o, d, _, _, _, _, alive, _ = _unpack_state(state)
+            key = _bounce_sort_key(scene, o, d, alive)
+            state = _permute_state(state, key, _sort_chunk())
+        rr = russian_roulette and (j + 1) >= rr_start_bounce
+        state, counts = jax.lax.map(
+            chunk_fn(last, rr), state.reshape(n_chunks, chunk, 16)
+        )
+        state = state.reshape(-1, 16)
+        rays_traced = rays_traced + jnp.sum(counts)
 
     _, _, _, color, _, _, _, lane = _unpack_state(state)
     pix = (lane % jnp.uint32(n)).astype(jnp.int32)

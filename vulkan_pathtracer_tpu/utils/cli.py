@@ -1,4 +1,4 @@
-"""CLI with the reference's flag surface, plus TPU-build extensions.
+"""CLI with the reference's flag surface, plus extensions.
 
 Flag names, short forms and defaults match ``main.zig:29-84`` exactly:
 ``--scene-path/-s`` (required), ``--num-samples/-c`` (1),
@@ -19,7 +19,7 @@ from vulkan_pathtracer_tpu.utils.config import RenderConfig
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="vulkan-pathtracer-tpu",
-        description="TPU-native wavefront path tracer",
+        description="JAX wavefront path tracer",
     )
     # -- reference surface ---------------------------------------------------
     p.add_argument("--scene-path", "-s", type=str, default="")
@@ -30,7 +30,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--render-resolution-divider", "-d", type=int, default=1)
     p.add_argument("--enable-validation", "-v", action="store_true")
 
-    # -- TPU-build extensions ------------------------------------------------
+    # -- extensions ----------------------------------------------------------
     p.add_argument("--output", "-o", type=str, default="out.png",
                    help="output PNG path (headless present target)")
     p.add_argument("--frames", type=int, default=1,
@@ -42,8 +42,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--russian-roulette", action="store_true",
                    help="enable RR path termination (extension)")
     p.add_argument("--traversal",
-                   choices=["auto", "bvh", "brute", "pallas",
-                            "pallas_packet", "pallas8"],
+                   choices=["auto", "bvh", "brute"],
                    default="auto")
     p.add_argument("--interactive", action="store_true",
                    help="terminal viewer: ANSI half-block frames with "

@@ -26,14 +26,15 @@ class RenderConfig:
     render_resolution_divider: int = 1  # --render-resolution-divider / -d
     enable_validation: bool = False     # --enable-validation / -v
 
-    # ---- TPU-build extensions (north-star features, default off) ----------
+    # ---- extensions beyond the reference (default off) ---------------------
     progressive: bool = False       # accumulate across frames
     russian_roulette: bool = False  # RR path termination after bounce 2
     rr_start_bounce: int = 2
-    traversal: str = "auto"  # auto | bvh | brute | pallas (dense run
-    # kernel) | pallas_packet (round-1 binary kernel) | pallas8 (wide)
-    # Sort bounce rays by (octant, origin Morton) before traversal —
-    # pure scheduling, per-ray results unchanged; 2-3x on bounces.
+    # auto (GPU kernel on a GPU, XLA loop elsewhere) | bvh (XLA loop)
+    # | brute (all triangles)
+    traversal: str = "auto"
+    # Sort bounce rays by the bounce key before traversal — pure
+    # scheduling, per-ray results unchanged.
     sort_secondary: bool = True
     # True wavefront compaction: shrink the dispatch to live rays
     # between bounces (prefix-sum compaction; SURVEY.md §7 M3).
@@ -75,14 +76,8 @@ class RenderConfig:
         )
 
 
-# Measured leaf-size policy (round-4 plan7-10): leaf-28 split rows
-# (ops/pallas_pair._leaf_rows_per_block) win on production scenes —
-# isolated secondaries 538->505 ms, headline 5.68->5.76 Mrays/s,
-# convergence 2.70->3.03 spp/s, exact — but LOSE ~11% below ~10k tris
-# (Cornell 252->284 ms, sphere-9.2k 244->275; shallow trees can't pay
-# for the doubled per-leaf scalar chain), with columns-56k neutral.
-# Cut at 50k.  Instanced scenes stay at 14 regardless (fly-through
-# 1.85 vs 1.98 fps measured) — callers on that path pass leaf sizes
+# Leaf-size policy: leaf-28 blocks for scenes of at least 50k
+# triangles, 14 below.  Instanced scenes pass their leaf size
 # explicitly and do not consult this.
 LEAF28_MIN_TRIS = 50_000
 

@@ -1,7 +1,7 @@
 """Tracing / profiling — the Timer.zig + Stats.zig plotting analog.
 
 The reference measures only CPU wall-clock per frame (Timer.zig:19-28)
-and plots a 100-frame history in the UI (Stats.zig:129-134).  The TPU
+and plots a 100-frame history in the UI (Stats.zig:129-134).  This
 build goes further (SURVEY.md §5 mandates the mapping):
 
 - ``trace(path)``: context manager around ``jax.profiler`` producing a

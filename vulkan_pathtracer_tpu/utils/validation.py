@@ -2,7 +2,7 @@
 
 The reference's ``--enable-validation`` turns on
 VK_LAYER_KHRONOS_validation (GraphicsContext.zig:91-126); Zig
-ReleaseSafe adds bounds/overflow checks.  The TPU-native equivalents
+ReleaseSafe adds bounds/overflow checks.  The equivalents here,
 bundled behind the same flag:
 
 - ``jax_debug_nans`` (app/main.py) — NaN/Inf tripwires in every
@@ -25,8 +25,8 @@ def checked_render(scene, camera, config, width: int = 64,
     checks; raises on any violation, returns the image otherwise.
 
     Uses the XLA traversal path (checkify cannot see inside Pallas
-    kernels; their invariants are covered by the kernel-vs-XLA parity
-    tests)."""
+    kernels; the kernel's invariants are covered by the kernel-vs-XLA
+    parity tests)."""
     import jax
     import jax.numpy as jnp
     from jax.experimental import checkify
